@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (dasa_tpu_torch).
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py            # every phase, as the check runs it
+    python3 chip_smoke.py --phases build,kernels
+
+Phases:
+  1. build — print the card's name and power limit, build the CUDA
+     kernels from ``dasa_tpu_torch/csrc`` and print the build time and
+     the compiler's register report.
+  2. kernels — each kernel against its plain PyTorch version on the card
+     at the headline shapes, with the tolerance stated; times (CUDA
+     events, median) of kernel, plain version and one yardstick PyTorch
+     call, beside the least time the card could take.
+  3. main — the launch counters set to 0, ``valid()`` (argmax evaluation
+     of val_seen and val_unseen) at the full headline DASA width over a
+     synthetic world, the counters read back; SR/SPL/NE per split,
+     episodes/s and agent-steps/s.  Fails if a kernel of the path never
+     launched.
+  4. compare — the same weights under ``use_pallas="always"`` and
+     ``"never"``: first-step logits within the stated bf16 tolerance, and
+     the share of episodes whose trajectories agree.
+  profile (only when named in --phases) — one eval batch at headline
+     width under torch.profiler after a warm-up batch: device time by
+     kernel, the device's busy share of the batch's wall time.
+Then one ``{"kernels": [...]}`` JSON line, and as the last line
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
+no phase is caught and ignored.  Imports nothing of JAX or dasa_tpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor-core
+# flop/s.  Bounds are stated against these with the card's power limit.
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+
+# headline DASA config (bench.py:168-226), evaluation only
+HEADLINE = dict(
+    encoder_type="Dic", include_vision=True, adain_type="channel",
+    ab_type="a", a_type="sigmoid", use_shift=True, shift_kernel_size=5,
+    angle_feat_size=128, feature_size=2048, d_enc_hidden_size=1024,
+    d_hidden_size=1024, critic_dim=1024, d_vl_layers=3, d_la_layers=9,
+    max_input=80, max_action=35, batch_size=20, compute_dtype="bfloat16")
+
+KERNEL_INFO = {
+    "lstm_scan": ("dasa_tpu_torch/csrc/lstm_fwd.cu",
+                  "dasa_tpu/ops/lstm.py:38 (_fwd_kernel)"),
+    "adain_channel_gate": ("dasa_tpu_torch/csrc/adain_gate.cu",
+                           "dasa_tpu/ops/adain.py:36 (_kernel)"),
+    "shift_attend": ("dasa_tpu_torch/csrc/shift_attend.cu",
+                     "dasa_tpu/ops/shift_attention.py:64 (_kernel_body)"),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    """Median of per-call CUDA-event times, after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, flops: float):
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_BF16 * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_close(name, got, ref, atol, rtol):
+    """max |got - ref| against atol + rtol * max |ref| (all f32)."""
+    got, ref = got.float(), ref.float()
+    if got.shape != ref.shape:
+        fail(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+    if not bool(got.isfinite().all()):
+        fail(f"{name}: non-finite output")
+    err = float((got - ref).abs().max())
+    limit = atol + rtol * float(ref.abs().max())
+    print(f"  {name}: max_abs_err {err:.3e} (limit {limit:.3e})", flush=True)
+    if not err <= limit:
+        fail(f"{name}: max_abs_err {err} > {limit}")
+    return err
+
+
+def phase_build():
+    from dasa_tpu_torch.ops import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    start = time.perf_counter()
+    path = _build.build()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s -> {path.name}",
+          flush=True)
+    log = path.with_suffix(".log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line or line.startswith("=="):
+                print(f"  {line.strip()}")
+    return card
+
+
+def phase_kernels(seed: int):
+    """Each kernel at its headline shapes against its plain version."""
+    import torch
+
+    from dasa_tpu_torch.ops.adain import (
+        adain_channel_gate,
+        adain_channel_gate_ref,
+    )
+    from dasa_tpu_torch.ops.lstm import lstm_scan, lstm_scan_ref
+    from dasa_tpu_torch.ops.shift_attention import (
+        shift_attend,
+        shift_attend_ref,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, bf)
+
+    rows = []
+
+    # K1: one direction of the top BiLSTM, T=80, B=20, H=1024
+    T, B, H, E = 80, 20, 1024, 768
+    lengths = torch.randint(20, T + 1, (B,), generator=gen)
+    mask = (torch.arange(T)[:, None] < lengths[None, :]).to(dev, bf)
+    xw = rnd(T, B, 4 * H, scale=0.5)
+    h0, c0 = rnd(B, H, scale=0.1), rnd(B, H, scale=0.1)
+    wt = rnd(4 * H, H, scale=1.0 / math.sqrt(3 * H))   # torch weight_hh
+    wh = wt.t()
+    hk, ck = lstm_scan(xw, mask, h0, c0, wh)
+    torch.cuda.synchronize()
+    hr, cr = lstm_scan_ref(xw, mask, h0, c0, wh)
+    # bf16(h) feeds every product, so one-ulp differences in a token's
+    # rounding (2^-8 relative) propagate through the 80-step chain
+    err = max(check_close("lstm_scan h_seq", hk, hr, 2e-2, 0.0),
+              check_close("lstm_scan c_seq", ck, cr, 2e-2, 1e-2))
+    lstm_cudnn = torch.nn.LSTM(E, H, device=dev, dtype=bf)
+    x_in = rnd(T, B, E)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        x_in, lengths, enforce_sorted=False)
+    n_bytes = 2 * (xw.numel() + mask.numel() + 2 * h0.numel() + wh.numel()
+                   + 2 * T * B * H)
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * T * B * H * 4 * H)
+    rows.append(dict(
+        name="lstm_scan", shape="T80 B20 H1024 (one direction)",
+        max_abs_err=err,
+        ms=time_ms(lambda: lstm_scan(xw, mask, h0, c0, wh)),
+        plain_ms=time_ms(lambda: lstm_scan_ref(xw, mask, h0, c0, wh),
+                         iters=5),
+        library_ms=time_ms(lambda: lstm_cudnn(packed)),
+        library_call="torch.nn.LSTM (cuDNN) on a PackedSequence, input "
+                     "768 (includes the input projection)",
+        bound_ms=b_ms, bound_by=b_by))
+
+    # K3: the AdaIN gate, panorama (720 rows) and candidates (320 rows)
+    C = 2048
+    w_t = rnd(C, C, scale=1.0 / math.sqrt(C))           # torch a_fc.weight
+    bias = rnd(C, scale=0.1)
+    for label, n in (("pano", B * 36), ("cand", B * 16)):
+        f = rnd(B, n // B, C).relu()
+        d = rnd(B, n // B, C).relu()
+        out = adain_channel_gate(f, d, w_t.t(), bias)
+        torch.cuda.synchronize()
+        ref = adain_channel_gate_ref(f, d, w_t.t(), bias)
+        # f32 accumulation in both; the outputs round to bf16 once
+        e1 = check_close(f"adain_channel_gate {label}", out, ref, 1e-2, 1e-2)
+        noise = (torch.rand(C, generator=gen) > 0.4).to(dev, bf) / 0.6
+        e2 = check_close(f"adain_channel_gate {label} noise",
+                         adain_channel_gate(f, d, w_t.t(), bias, noise),
+                         adain_channel_gate_ref(f, d, w_t.t(), bias, noise),
+                         1e-2, 1e-2)
+        w_kc = w_t.t().contiguous()
+        n_bytes = 2 * (f.numel() + d.numel() + w_t.numel() + 2 * C
+                       + f.numel())
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * n * C * C)
+        d2 = d.reshape(n, C)
+        rows.append(dict(
+            name=f"adain_channel_gate[{label}]", shape=f"{n}x{C} @ {C}x{C}",
+            max_abs_err=max(e1, e2),
+            ms=time_ms(lambda: adain_channel_gate(f, d, w_t.t(), bias)),
+            plain_ms=time_ms(
+                lambda: adain_channel_gate_ref(f, d, w_t.t(), bias)),
+            library_ms=time_ms(lambda: torch.addmm(bias, d2, w_kc)),
+            library_call="torch.addmm, the bare GEMM (a floor)",
+            bound_ms=b_ms, bound_by=b_by))
+
+    # K4: shift attention, B=20, 36 views, C=2176, H=1024, k=5
+    Cf, ks = 2176, 5
+    h = rnd(B, H, scale=0.5)
+    ctx = rnd(B, 36, Cf).relu()
+    w_in = rnd(Cf, H, scale=1.0 / math.sqrt(H)).t()       # (H, C) view
+    w_s = rnd(ks, H, scale=1.0 / math.sqrt(H)).t()
+    b_s = rnd(ks, scale=0.1)
+    ok_, lk = shift_attend(h, ctx, w_in, w_s, b_s)
+    torch.cuda.synchronize()
+    orf, lrf = shift_attend_ref(h, ctx, w_in, w_s, b_s)
+    # logits: f32 sums of 2176 products in another order; out: bf16
+    err = max(check_close("shift_attend logits", lk, lrf, 1e-3, 1e-4),
+              check_close("shift_attend out", ok_, orf, 1e-2, 1e-2))
+    n_bytes = (2 * (h.numel() + ctx.numel() + w_in.numel() + w_s.numel()
+                    + ks + B * Cf) + 4 * B * 36)
+    flops = 2.0 * B * H * (Cf + ks) + 2 * 2.0 * B * 36 * Cf
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    rows.append(dict(
+        name="shift_attend", shape="B20 T36 C2176 H1024 k5",
+        max_abs_err=err,
+        ms=time_ms(lambda: shift_attend(h, ctx, w_in, w_s, b_s)),
+        plain_ms=time_ms(lambda: shift_attend_ref(h, ctx, w_in, w_s, b_s)),
+        library_ms=None, library_call=None, bound_ms=b_ms, bound_by=b_by))
+    for r in rows:
+        lib = ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms ({r['library_call']})")
+        print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library {lib}", flush=True)
+    return rows
+
+
+def headline_world(root: str, seed: int, **overrides):
+    from dasa_tpu_torch.config import Config
+    from dasa_tpu_torch.data.datasets import make_synthetic_task
+    from dasa_tpu_torch.testing import write_synthetic_connectivity
+    from dasa_tpu_torch.train.trainer import World
+
+    conn = os.path.join(root, "connectivity")
+    data = os.path.join(root, "task")
+    write_synthetic_connectivity(conn, ["synthA", "synthB"], n_nodes=40,
+                                 seed=seed)
+    make_synthetic_task(data, ["synthA"], ["synthB"], n_train=4, n_val=10,
+                        connectivity_dir=conn, seed=seed)
+    cfg = Config(**HEADLINE, data_dir=data, connectivity_dir=conn,
+                 seed=seed, **overrides)
+    return cfg, World(cfg)
+
+
+def check_summary(name, summary):
+    """Evaluation.score has already asserted that every episode of the
+    split has a trajectory that starts at its start viewpoint."""
+    for key, val in summary.items():
+        if not math.isfinite(val):
+            fail(f"{name}: {key} = {val}")
+    for key in ("success_rate", "spl", "oracle_rate"):
+        if not 0.0 <= summary[key] <= 1.0:
+            fail(f"{name}: {key} = {summary[key]} outside [0, 1]")
+
+
+def phase_main(cfg, world, seed: int):
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.train.trainer import make_agent, valid
+
+    agent = make_agent(cfg, world, rng_seed=seed)
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    start = time.perf_counter()
+    out = valid(cfg, world, agent=agent)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.kernel_launches()
+    episodes = 0
+    for split, summary in out.items():
+        n = world.envs[split].size()
+        episodes += n
+        check_summary(split, summary)
+        print(f"  {split}: SR {summary['success_rate']:.4f} SPL "
+              f"{summary['spl']:.4f} NE {summary['nav_error']:.4f} "
+              f"({n} episodes)", flush=True)
+    print(f"  valid(): {seconds:.2f} s, {episodes / seconds:.2f} episodes/s, "
+          f"{agent.total_env_steps / seconds:.2f} agent-steps/s "
+          f"({agent.total_env_steps} agent-steps)", flush=True)
+    print(f"  launches during valid(): {launches}", flush=True)
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} never launched on the main path")
+    return agent, launches
+
+
+def phase_compare(cfg, world, agent_always, seed: int):
+    """Same weights under use_pallas always vs never."""
+    import torch
+
+    from dasa_tpu_torch.train.trainer import make_agent
+
+    agent_never = make_agent(cfg.replace(use_pallas="never"), world,
+                             rng_seed=seed + 1)
+    agent_never.policy.load_state_dict(agent_always.policy.state_dict())
+    env = world.envs["val_unseen"]
+    # first-step logits of the same first batch, before test() wraps the
+    # split (a wrap reshuffles the env's episode order)
+    logits = []
+    for agent in (agent_always, agent_never):
+        agent.env = env
+        env.reset_epoch()
+        logits.append(agent.first_step_logits())
+    trajs = [{r["instr_id"]: r["trajectory"]
+              for r in agent.test(feedback="argmax")}
+             for agent in (agent_always, agent_never)]
+    la, ln = logits
+    real = la > -1e8
+    if not torch.equal(real, ln > -1e8):
+        fail("always/never: candidate masks differ")
+    # the kernel path keeps the BiLSTM carry and the AdaIN epilogue in
+    # f32 where the plain path rounds to bf16 at every op: the logits
+    # agree to a few bf16 ulps of their scale
+    check_close("first-step logits always vs never", la[real], ln[real],
+                0.0, 5e-2)
+    same = sum(trajs[0][k] == trajs[1][k] for k in trajs[0])
+    print(f"  trajectory agreement always vs never: {same}/{len(trajs[0])} "
+          f"= {same / len(trajs[0]):.3f}", flush=True)
+
+
+def phase_profile(cfg, world, seed: int):
+    """Where one eval batch's time goes on the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dasa_tpu_torch.train.trainer import make_agent
+
+    agent = make_agent(cfg, world, rng_seed=seed)
+    agent.env = world.envs["val_unseen"]
+    agent.env.reset_epoch()
+    agent._device_test_batch()  # warm-up: weight casts, library handles
+    agent.env.reset_epoch()
+    torch.cuda.synchronize()
+    steps0 = agent.total_env_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        agent._device_test_batch()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    rows = []  # device-side events only (kernels, copies, sets)
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        if evt.device_type == DeviceType.CUDA and dev_us > 0:
+            rows.append((dev_us / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    print(f"  batch wall {wall_ms:.2f} ms for {agent.total_env_steps - steps0}"
+          f" agent-steps; device busy {device_ms:.2f} ms "
+          f"({100 * device_ms / wall_ms:.1f}% of wall)", flush=True)
+    for ms, count, key in rows[:20]:
+        print(f"    {ms:9.3f} ms {count:6d}x  {key[:90]}", flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="build,kernels,main,compare")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    phases = set(args.phases.split(","))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "dasa_tpu_torch")):
+        fail(f"dasa_tpu_torch not found beside {__file__}")
+    sys.path.insert(0, here)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind} x {torch.cuda.device_count()}, torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    rows = []
+    if "build" in phases:
+        print("== phase 1: build", flush=True)
+        phase_build()
+    if "kernels" in phases:
+        print("== phase 2: kernels against their plain versions", flush=True)
+        rows = phase_kernels(args.seed)
+    launches = {}
+    if phases & {"main", "compare", "profile"}:
+        with tempfile.TemporaryDirectory() as root:
+            cfg, world = headline_world(root, args.seed, use_pallas="always")
+            print("== phase 3: valid() at headline width", flush=True)
+            agent, launches = phase_main(cfg, world, args.seed)
+            if "compare" in phases:
+                print("== phase 4: use_pallas always vs never", flush=True)
+                phase_compare(cfg, world, agent, args.seed)
+            if "profile" in phases:
+                print("== profile: one eval batch", flush=True)
+                phase_profile(cfg, world, args.seed)
+    out = []
+    for r in rows:
+        base = r["name"].split("[")[0]
+        src, replaces = KERNEL_INFO[base]
+        out.append({"name": r["name"], "route": "cuda", "source": src,
+                    "replaces": replaces,
+                    "launches": launches.get(base, 0),
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                    "pass": True})  # a failed check exits before this
+    print(json.dumps({"kernels": out}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,17 @@
+"""dasa_tpu_torch — the PyTorch/CUDA port of dasa_tpu, for NVIDIA Hopper.
+
+The package mirrors ``dasa_tpu/``'s layout module for module.  Plain
+tensor code is PyTorch; every Pallas TPU kernel of the ported paths is a
+CUDA C++ kernel written for ``sm_90a`` under ``csrc/``, built on first
+use (``ops/_build.py``) and bound with ``ctypes``.  Beside each kernel
+its module keeps a plain PyTorch version, which CPU tensors take.
+
+The package imports ``torch`` and never JAX, and nothing of ``dasa_tpu``:
+the host modules it needs (config, sim, env, data, evaluation, vocab)
+are copies.  Entry points run on CUDA unless the caller passes
+``device="cpu"``.  Ported so far: the argmax evaluation path
+(``train.trainer.valid``) of the headline DASA listener; ROADMAP.md lists
+the rest.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,282 @@
+"""Core neural layers: LSTMs and the attention family.
+
+PyTorch counterpart of ``dasa_tpu/models/layers.py`` (reference
+r2r_src/model.py:16-353).  Parameters are f32 and named as the
+reference's torch ``state_dict``; each layer computes in its
+``compute_dtype`` (flax's ``Dense(dtype=...)`` rule: inputs, weights and
+biases are cast first).  Only the layers the argmax evaluation slice runs
+are here; ``LSTM`` (unidirectional), ``MLP`` and ``scaled_dot_attention``
+come with later slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from dasa_tpu_torch.ops.lstm import lstm_scan
+from dasa_tpu_torch.ops.shift_attention import shift_attend
+
+NEG_INF = -1e9  # softmax mask value (finite to keep grads NaN-free)
+
+
+def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``p`` in ``dtype``.  Outside autograd the cast copy is kept on the
+    parameter and reused until the parameter changes (its version, device
+    or storage), so inference does not re-cast every weight every step."""
+    if p.dtype == dtype:
+        return p
+    if torch.is_grad_enabled() and p.requires_grad:
+        return p.to(dtype)
+    key = (p._version, p.data_ptr(), dtype)
+    hit = getattr(p, "_compute_cast", None)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    out = p.detach().to(dtype)
+    p._compute_cast = (key, out)
+    return out
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's default kernel init: truncated normal, variance 1/fan_in."""
+    std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with f32 parameters that computes in
+    ``compute_dtype``; flax's init (lecun-normal weight, zero bias)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, compute_dtype=torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+        with torch.no_grad():
+            lecun_normal_(self.weight, in_features)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return nn.functional.linear(
+            x.to(dt), cast_param(self.weight, dt),
+            None if self.bias is None else cast_param(self.bias, dt))
+
+
+def _uniform_(p: torch.Tensor, scale: float) -> None:
+    with torch.no_grad():
+        p.uniform_(-scale, scale)
+
+
+class LstmCell(nn.Module):
+    """torch ``nn.LSTMCell`` naming and gate order (i, f, g, o), uniform
+    +-1/sqrt(H) init.  ``bias_ih + bias_hh`` plays the JAX cell's single
+    bias."""
+
+    def __init__(self, features: int, in_features: int,
+                 compute_dtype=torch.float32):
+        super().__init__()
+        self.features = features
+        self.compute_dtype = compute_dtype
+        self.weight_ih = nn.Parameter(torch.empty(4 * features, in_features))
+        self.weight_hh = nn.Parameter(torch.empty(4 * features, features))
+        self.bias_ih = nn.Parameter(torch.empty(4 * features))
+        self.bias_hh = nn.Parameter(torch.empty(4 * features))
+        k = 1.0 / math.sqrt(features)
+        for p in self.parameters():
+            _uniform_(p, k)
+
+    def forward(self, carry: Tuple[torch.Tensor, torch.Tensor], x):
+        dt = self.compute_dtype
+        h, c = carry
+        gates = (x.to(dt) @ cast_param(self.weight_ih, dt).t()
+                 + h.to(dt) @ cast_param(self.weight_hh, dt).t()
+                 + (self.bias_ih + self.bias_hh).to(dt))
+        i, f, g, o = gates.chunk(4, dim=-1)
+        new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        new_h = torch.sigmoid(o) * torch.tanh(new_c)
+        return new_h, new_c
+
+
+class BiLSTM(nn.Module):
+    """Bidirectional masked LSTM with torch ``nn.LSTM`` naming
+    (``weight_ih_l0``, ``..._reverse``).  Outputs concat(fwd, bwd)
+    features and final states concat(bwd, fwd) (reference
+    model.py:66-68).  Masked tokens pass the carry on, as PackedSequence
+    does.
+
+    ``kernel=True`` runs each direction through ``ops.lstm.lstm_scan``
+    (f32 carry; the CUDA kernel on the card); otherwise both directions
+    run as one plain token loop over stacked (2, B) states whose carry
+    stays in the compute dtype (``dasa_tpu/models/layers.py:195-229``)."""
+
+    def __init__(self, features: int, in_features: int,
+                 compute_dtype=torch.float32):
+        super().__init__()
+        self.features = features
+        self.compute_dtype = compute_dtype
+        k = 1.0 / math.sqrt(features)
+        for sfx in ("", "_reverse"):
+            for name, shape in (("weight_ih", (4 * features, in_features)),
+                                ("weight_hh", (4 * features, features)),
+                                ("bias_ih", (4 * features,)),
+                                ("bias_hh", (4 * features,))):
+                p = nn.Parameter(torch.empty(*shape))
+                _uniform_(p, k)
+                self.register_parameter(f"{name}_l0{sfx}", p)
+
+    def _dir(self, sfx: str):
+        dt = self.compute_dtype
+        wi = cast_param(getattr(self, f"weight_ih_l0{sfx}"), dt)
+        wh = cast_param(getattr(self, f"weight_hh_l0{sfx}"), dt)
+        b = (getattr(self, f"bias_ih_l0{sfx}")
+             + getattr(self, f"bias_hh_l0{sfx}")).to(dt)
+        return wi, wh, b
+
+    def forward(self, x, mask, kernel: bool = False):
+        dt = self.compute_dtype
+        x = x.to(dt)
+        x_rev = x.flip(1)
+        m_rev = mask.flip(1)
+        batch = x.shape[0]
+        feats = self.features
+        if kernel:
+            zeros = torch.zeros(batch, feats, dtype=dt, device=x.device)
+
+            def run(sfx, xs, ms):
+                wi, wh, b = self._dir(sfx)
+                xw = (xs @ wi.t() + b).transpose(0, 1)         # (T, B, 4H)
+                m = ms.transpose(0, 1).to(dt)                  # (T, B)
+                h_seq, c_seq = lstm_scan(xw, m, zeros, zeros, wh.t())
+                return ((h_seq * m[..., None]).transpose(0, 1),
+                        h_seq[-1], c_seq[-1])
+
+            out_f, hf, cf = run("", x, mask)
+            out_b_rev, hb, cb = run("_reverse", x_rev, m_rev)
+            ctx = torch.cat([out_f, out_b_rev.flip(1)], dim=-1)
+            return ctx, (torch.cat([hb, hf], -1), torch.cat([cb, cf], -1))
+
+        (wi_f, wh_f, b_f), (wi_b, wh_b, b_b) = self._dir(""), self._dir(
+            "_reverse")
+        xw = torch.stack([x @ wi_f.t(), x_rev @ wi_b.t()], 0)  # (2,B,T,4H)
+        masks = torch.stack([mask, m_rev], 0).to(dt)          # (2,B,T)
+        wh = torch.stack([wh_f.t(), wh_b.t()], 0)             # (2,H,4H)
+        bias = torch.stack([b_f, b_b], 0)[:, None]            # (2,1,4H)
+        h = torch.zeros(2, batch, feats, dtype=dt, device=x.device)
+        c = torch.zeros_like(h)
+        ys = []
+        for t in range(x.shape[1]):
+            gates = xw[:, :, t] + torch.bmm(h, wh) + bias
+            i, f, g, o = gates.chunk(4, dim=-1)
+            new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            new_h = torch.sigmoid(o) * torch.tanh(new_c)
+            m = masks[:, :, t, None]
+            h = m * new_h + (1 - m) * h
+            c = m * new_c + (1 - m) * c
+            ys.append(new_h * m)
+        ys = torch.stack(ys, 2)                               # (2,B,T,H)
+        ctx = torch.cat([ys[0], ys[1].flip(1)], dim=-1)
+        return ctx, (torch.cat([h[1], h[0]], -1), torch.cat([c[1], c[0]], -1))
+
+
+class SoftDotAttention(nn.Module):
+    """Classic dot attention (reference model.py:253-296).  ``mask`` True
+    = masked.  ``linear_out`` exists only when the layer is built
+    ``with_tilde`` (the JAX module creates it only where h_tilde is
+    used)."""
+
+    def __init__(self, dim: int, ctx_dim: int, with_tilde: bool = True,
+                 compute_dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.linear_in = Dense(dim, ctx_dim, bias=False,
+                               compute_dtype=compute_dtype)
+        self.linear_out = (Dense(dim + ctx_dim, dim, bias=False,
+                                 compute_dtype=compute_dtype)
+                           if with_tilde else None)
+
+    def forward(self, h, context, mask=None, output_tilde: bool = True,
+                output_prob: bool = True):
+        dt = self.compute_dtype
+        h = h.to(dt)
+        context = context.to(dt)
+        target = self.linear_in(h)
+        logit = torch.bmm(context, target[:, :, None])[..., 0]
+        masked = logit if mask is None else logit.masked_fill(mask, NEG_INF)
+        attn = torch.softmax(masked, dim=-1)
+        weighted = torch.bmm(attn[:, None, :], context)[:, 0]
+        attn_out = attn if output_prob else logit
+        if output_tilde:
+            h_tilde = torch.tanh(self.linear_out(
+                torch.cat([weighted, h], dim=-1)))
+            return h_tilde, attn_out
+        return weighted, attn_out
+
+
+class ShiftSoftDotAttention(nn.Module):
+    """DASA shift attention over the 36-view panorama (reference
+    model.py:300-353): the (B, 36) attention, as 3 elevation rows of 12
+    headings, is smoothed by a per-sample kernel predicted from h with a
+    circular cross-correlation along each heading ring.
+
+    With ``use_kernel`` and no mask the whole layer runs through
+    ``ops.shift_attention.shift_attend`` (the CUDA kernel on the card),
+    as ``dasa_tpu/models/layers.py:283-304`` routes to its Pallas
+    kernel."""
+
+    def __init__(self, dim: int, ctx_dim: int, kernel_size: int = 3,
+                 use_kernel: bool = False, with_tilde: bool = True,
+                 compute_dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.kernel_size = kernel_size
+        self.use_kernel = use_kernel
+        self.linear_in = Dense(dim, ctx_dim, bias=False,
+                               compute_dtype=compute_dtype)
+        self.linear_shift = Dense(dim, kernel_size,
+                                  compute_dtype=compute_dtype)
+        self.linear_out = (Dense(dim + ctx_dim, dim, bias=False,
+                                 compute_dtype=compute_dtype)
+                           if with_tilde else None)
+
+    def forward(self, h, context, mask=None, output_tilde: bool = True,
+                output_prob: bool = True):
+        dt = self.compute_dtype
+        h = h.to(dt)
+        context = context.to(dt)
+        batch = h.shape[0]
+        if self.use_kernel and mask is None:
+            weighted, logit = shift_attend(
+                h, context, cast_param(self.linear_in.weight, dt).t(),
+                cast_param(self.linear_shift.weight, dt).t(),
+                cast_param(self.linear_shift.bias, dt))
+            weighted = weighted.to(dt)
+            attn_out = torch.softmax(logit, -1) if output_prob else logit
+        else:
+            target = self.linear_in(h)
+            logit = torch.bmm(context, target[:, :, None])[..., 0]
+            masked = (logit if mask is None
+                      else logit.masked_fill(mask, NEG_INF))
+            attn = torch.softmax(masked, dim=-1)
+            n_views = attn.shape[1]
+            if n_views % 3:
+                raise ValueError("shift attention expects 3 elevation rows")
+            width = n_views // 3
+            rows = attn.reshape(batch, 3, width)
+            kernel = torch.softmax(self.linear_shift(h), dim=-1)  # (B, k)
+            pad = self.kernel_size // 2
+            ring = torch.cat([rows[:, :, width - pad:], rows,
+                              rows[:, :, :pad]], dim=-1)
+            smoothed = sum(ring[:, :, k:k + width] * kernel[:, k, None, None]
+                           for k in range(self.kernel_size))
+            weighted = torch.bmm(smoothed.reshape(batch, 1, n_views),
+                                 context)[:, 0]
+            attn_out = attn if output_prob else logit
+        if output_tilde:
+            h_tilde = torch.tanh(self.linear_out(
+                torch.cat([weighted, h], dim=-1)))
+            return h_tilde, attn_out
+        return weighted, attn_out

@@ -1,0 +1,75 @@
+"""Fused depth-guided AdaIN channel gate: CUDA kernel and plain version.
+
+Port of the TPU kernel ``dasa_tpu/ops/adain.py:_kernel`` (via
+``_pallas_forward`` / ``adain_channel_gate``): out = sigmoid(d W + b) * f
+* noise in one pass, the published DASA config (``ab_type=a``,
+``a_type=sigmoid``).  The kernel (``csrc/adain_gate.cu``) is a tiled
+tensor-core GEMM with the gate fused into its epilogue; its source note
+says what bounds it and how the design answers.  Forward only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from dasa_tpu_torch.ops import _build
+
+
+def adain_channel_gate_ref(f, d, w, b, noise=None) -> torch.Tensor:
+    """Plain PyTorch version.  f, d (..., C); w (C, C) in the JAX layout
+    (in, out); b (C,); noise (C,) or None.  w and b are first cast to f's
+    dtype, the product accumulates in f32, the gate and the multiplies
+    run in f32, and the result is rounded to f's dtype once — the TPU
+    kernel's arithmetic."""
+    c = f.shape[-1]
+    acc = d.reshape(-1, c).float() @ w.to(f.dtype).float()
+    out = torch.sigmoid(acc + b.to(f.dtype).float()) * f.reshape(-1, c).float()
+    if noise is not None:
+        out = out * noise.to(f.dtype).float()
+    return out.to(f.dtype).reshape(f.shape)
+
+
+def adain_channel_gate(f, d, w, b, noise: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """out = sigmoid(d @ w + b) * f * noise (see
+    :func:`adain_channel_gate_ref`).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    ``csrc/adain_gate.cu`` (bf16 only) or raise.  ``w`` may be a
+    transposed view of a contiguous (out, in) tensor (torch's Linear
+    weight), which the kernel reads without a copy."""
+    if f.device.type == "cpu":
+        return adain_channel_gate_ref(f, d, w, b, noise)
+    shape = f.shape
+    c = shape[-1]
+    k = d.shape[-1]
+    if d.shape[:-1] != shape[:-1] or w.shape != (k, c) or b.shape != (c,):
+        raise ValueError(f"adain_channel_gate: shapes f {tuple(shape)}, d "
+                         f"{tuple(d.shape)}, w {tuple(w.shape)}, b "
+                         f"{tuple(b.shape)} do not match")
+    if c % 64 or k % 32:
+        raise ValueError(f"adain_channel_gate: C={c} must be a multiple of "
+                         f"64 and K={k} of 32")
+    f2 = f.reshape(-1, c).contiguous()
+    d2 = d.reshape(-1, k).contiguous()
+    wt = w.t().contiguous()
+    b = b.contiguous()
+    tensors = dict(f=f2, d=d2, w=wt, b=b)
+    if noise is not None:
+        noise = noise.reshape(c).contiguous()
+        tensors["noise"] = noise
+    _build.require_cuda("adain_channel_gate", **tensors)
+    lib = _build.library()
+    out = torch.empty_like(f2)
+    rc = lib.dasa_adain_gate(
+        d2.data_ptr(), f2.data_ptr(), wt.data_ptr(), b.data_ptr(),
+        None if noise is None else noise.data_ptr(), out.data_ptr(),
+        f2.shape[0], c, k, _build.stream_of(f2))
+    _build.check(rc, "adain_channel_gate")
+    adain_channel_gate.launches += 1
+    return out.reshape(shape)
+
+
+adain_channel_gate.launches = 0

@@ -1,0 +1,95 @@
+"""Carry weights from the JAX package's param tree into the port.
+
+``policy_state_dict_from_jax`` takes the flax param tree of the JAX
+``DasaPolicy`` (nested dicts of arrays, as ``jax.tree_util.tree_map(
+np.asarray, params)`` gives it; no JAX import is needed here) and returns
+the port's ``state_dict``, whose names are the reference r2r_src torch
+names.  Conventions, the inverse of ``dasa_tpu/utils/torch_import.py``:
+
+- a flax ``kernel`` (in, out) is a torch Linear ``weight`` (out, in),
+  transposed; LayerNorm ``scale`` and Embed ``embedding`` are ``weight``;
+- an LSTM cell's ``wi``/``wh`` (in, 4H) become ``weight_ih``/``weight_hh``
+  (4H, in); its single bias ``b`` goes to ``bias_ih`` and zeros to
+  ``bias_hh``; BiLSTM ``fwd_cell``/``bwd_cell`` are torch's ``_l0`` and
+  ``_l0_reverse``;
+- ``lalayer_3`` is ``lalayer.3``; the decoder's ``embedding`` is the
+  reference Sequential's ``embedding.0``; the critic's ``Dense_0`` and
+  ``Dense_1`` are ``state2value.0`` and ``state2value.3``.
+
+Under ``use_pallas="always"`` the JAX kernel paths store their params
+under flat keys (``"a_fc/kernel"``, ``"linear_in/kernel"``,
+``dasa_tpu/models/adain.py:71-75``, ``dasa_tpu/models/layers.py:286-293``)
+where the plain paths nest them (``{"a_fc": {"kernel": ...}}``); both
+layouts are accepted.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+
+Path = Tuple[str, ...]
+
+_INDEXED = re.compile(r"^(lalayer|addlayer|vlayer)_(\d+)$")
+_RENAME = {("decoder", "embedding"): ("decoder", "embedding", "0"),
+           ("critic", "Dense_0"): ("critic", "state2value", "0"),
+           ("critic", "Dense_1"): ("critic", "state2value", "3")}
+
+
+def flatten_params(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
+    """Nested param dicts -> {path: array}, splitting the "a/b" flat keys
+    of the JAX kernel paths into nested path parts."""
+    out: Dict[Path, np.ndarray] = {}
+    for key, val in tree.items():
+        path = prefix + tuple(str(key).split("/"))
+        if isinstance(val, Mapping):
+            out.update(flatten_params(val, path))
+        else:
+            out[path] = np.asarray(val)
+    return out
+
+
+def _module_path(path: Path) -> Path:
+    for head, new in _RENAME.items():
+        if path[:len(head)] == head:
+            path = new + path[len(head):]
+    return tuple(f"{m.group(1)}.{m.group(2)}" if (m := _INDEXED.match(p))
+                 else p for p in path)
+
+
+def policy_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """The port's ``DasaPolicy`` state_dict (numpy f32 arrays) from the
+    JAX ``DasaPolicy`` param tree."""
+    tree = params.get("params", params)
+    state: Dict[str, np.ndarray] = {}
+    for path, val in flatten_params(tree).items():
+        *mod, leaf = path
+        val = np.asarray(val, np.float32)
+        if mod[-1] in ("fwd_cell", "bwd_cell"):
+            sfx = "_l0" if mod[-1] == "fwd_cell" else "_l0_reverse"
+            base = ".".join(_module_path(tuple(mod[:-1])))
+        elif leaf in ("wi", "wh", "b"):
+            sfx = ""
+            base = ".".join(_module_path(tuple(mod)))
+        else:
+            sfx = None
+            base = ".".join(_module_path(tuple(mod)))
+        if sfx is not None:
+            if leaf == "wi":
+                state[f"{base}.weight_ih{sfx}"] = val.T
+            elif leaf == "wh":
+                state[f"{base}.weight_hh{sfx}"] = val.T
+            else:
+                state[f"{base}.bias_ih{sfx}"] = val
+                state[f"{base}.bias_hh{sfx}"] = np.zeros_like(val)
+        elif leaf == "kernel":
+            state[f"{base}.weight"] = val.T
+        elif leaf in ("scale", "embedding"):
+            state[f"{base}.weight"] = val
+        elif leaf == "bias":
+            state[f"{base}.bias"] = val
+        else:
+            raise KeyError(f"unmapped JAX param {'/'.join(path)}")
+    return {k: np.array(v, np.float32, order="C") for k, v in state.items()}

@@ -1,0 +1,83 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These cases need an NVIDIA GPU with the CUDA toolkit: each builds the
+kernels (``dasa_tpu_torch/ops/_build.py``) and compares a kernel with its
+plain PyTorch version on the same bf16 inputs.  Without a card they skip.
+The file imports no JAX, so on a machine without it run it past the
+JAX-forcing tests/conftest.py:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dasa_tpu_torch.ops.adain import (
+    adain_channel_gate,
+    adain_channel_gate_ref,
+)
+from dasa_tpu_torch.ops.lstm import lstm_scan, lstm_scan_ref
+from dasa_tpu_torch.ops.shift_attention import (
+    shift_attend,
+    shift_attend_ref,
+)
+
+
+@pytest.fixture
+def cuda():
+    """Decided per test, never at import: the kernels run only on a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+
+
+def _lstm_inputs(seed, t, b, h):
+    rng = np.random.default_rng(seed)
+    xw = (rng.standard_normal((t, b, 4 * h)) * 0.5).astype(np.float32)
+    mask = np.ones((t, b), np.float32)
+    for j in range(b):  # ragged: rows end at different tokens
+        mask[t - 1 - j % 3:, j] = 0.0
+    h0 = (rng.standard_normal((b, h)) * 0.3).astype(np.float32)
+    c0 = (rng.standard_normal((b, h)) * 0.3).astype(np.float32)
+    wh = (rng.standard_normal((h, 4 * h)) / np.sqrt(h)).astype(np.float32)
+    return xw, mask, h0, c0, wh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", [(3, 64), (20, 256)])
+def test_lstm_kernel_matches_plain_on_card(cuda, b, h):
+    xw, mask, h0, c0, wh = (torch.from_numpy(a).cuda().bfloat16()
+                            for a in _lstm_inputs(7, 16, b, h))
+    got = lstm_scan(xw, mask, h0, c0, wh)
+    ref = lstm_scan_ref(xw, mask, h0, c0, wh)
+    for g, r in zip(got, ref):  # bf16 outputs: a few ulps after 16 steps
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 100])
+def test_adain_kernel_matches_plain_on_card(cuda, n):
+    g = torch.Generator().manual_seed(n)
+    f, d = (torch.randn(n, 128, generator=g).cuda().bfloat16()
+            for _ in range(2))
+    w = (torch.randn(128, 128, generator=g) * 0.1).cuda().bfloat16()
+    b = (torch.randn(128, generator=g) * 0.1).cuda().bfloat16()
+    torch.testing.assert_close(adain_channel_gate(f, d, w, b).float(),
+                               adain_channel_gate_ref(f, d, w, b).float(),
+                               atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_shift_kernel_matches_plain_on_card(cuda):
+    g = torch.Generator().manual_seed(0)
+    h = torch.randn(5, 64, generator=g).cuda().bfloat16()
+    ctx = torch.randn(5, 36, 136, generator=g).cuda().bfloat16()
+    w_in = (torch.randn(64, 136, generator=g) * 0.1).cuda().bfloat16()
+    w_s = (torch.randn(64, 5, generator=g) * 0.1).cuda().bfloat16()
+    b_s = torch.zeros(5).cuda().bfloat16()
+    out, logit = shift_attend(h, ctx, w_in, w_s, b_s)
+    r_out, r_logit = shift_attend_ref(h, ctx, w_in, w_s, b_s)
+    torch.testing.assert_close(logit, r_logit, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(out.float(), r_out.float(), atol=1e-2,
+                               rtol=1e-2)

@@ -22,10 +22,22 @@ Phases:
   4. compare — the same weights under ``use_pallas="always"`` and
      ``"never"``: first-step logits within the stated bf16 tolerance, and
      the share of episodes whose trajectories agree.
-  profile (only when named in --phases) — one eval batch at headline
-     width under torch.profiler after a warm-up batch: device time by
-     kernel, the device's busy share of the batch's wall time.
-Then one ``{"kernels": [...]}`` JSON line, and as the last line
+  5. train — the launch counters set to 0, ``train()`` (listener: a
+     teacher-ML pass, a sampled A2C pass and an optimizer step per
+     iteration) at the headline width and training settings under
+     ``use_pallas="always"``, the counters read back.  Fails unless every
+     kernel (K1-K4) launched, every loss is finite and the parameters
+     moved; prints seconds per iteration, training agent-steps/s and the
+     peak memory.
+  6. train-compare — the same weights under ``always`` and ``never``,
+     dropout off, one fused argmax pass with ``train_ml=0.2``: the loss
+     within the stated tolerance, the cosine of the flattened gradients
+     above the stated floor, and the share of equal trajectories.
+  profile (only when named in --phases) — one eval batch and one training
+     iteration at headline width under torch.profiler, each after a
+     warm-up: device time by kernel, the device's busy share of the wall.
+Then one ``{"kernels": [...]}`` JSON line (``launches``: the count during
+``train()``; ``launches_eval``: during ``valid()``), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 no phase is caught and ignored.  Imports nothing of JAX or dasa_tpu.
 """
@@ -54,10 +66,21 @@ HEADLINE = dict(
     angle_feat_size=128, feature_size=2048, d_enc_hidden_size=1024,
     d_hidden_size=1024, critic_dim=1024, d_vl_layers=3, d_la_layers=9,
     max_input=80, max_action=35, batch_size=20, compute_dtype="bfloat16")
+# its training settings (bench.py:168-226) in the episodic regime, one
+# teacher-ML pass + one sampled A2C pass per iteration
+TRAIN = dict(
+    depth_drop=True, consistent_drop=True, env_drop_stage="after_adain",
+    featdropout=0.4, optim="rms", lr=1e-4, use_lr_scheduler=True,
+    ml_weight=0.2, feedback="sample", rollout_mode="episodic",
+    fuse_passes="never", remat="never")
+TRAIN_ITERS = 8
+EVAL_KERNELS = ("lstm_scan", "adain_channel_gate", "shift_attend")
 
 KERNEL_INFO = {
     "lstm_scan": ("dasa_tpu_torch/csrc/lstm_fwd.cu",
                   "dasa_tpu/ops/lstm.py:38 (_fwd_kernel)"),
+    "lstm_scan_bwd": ("dasa_tpu_torch/csrc/lstm_bwd.cu",
+                      "dasa_tpu/ops/lstm.py:65 (_bwd_kernel)"),
     "adain_channel_gate": ("dasa_tpu_torch/csrc/adain_gate.cu",
                            "dasa_tpu/ops/adain.py:36 (_kernel)"),
     "shift_attend": ("dasa_tpu_torch/csrc/shift_attend.cu",
@@ -139,7 +162,13 @@ def phase_kernels(seed: int):
         adain_channel_gate,
         adain_channel_gate_ref,
     )
-    from dasa_tpu_torch.ops.lstm import lstm_scan, lstm_scan_ref
+    from dasa_tpu_torch.ops.lstm import (
+        _fwd_ref,
+        lstm_scan,
+        lstm_scan_bwd,
+        lstm_scan_bwd_ref,
+        lstm_scan_ref,
+    )
     from dasa_tpu_torch.ops.shift_attention import (
         shift_attend,
         shift_attend_ref,
@@ -162,31 +191,69 @@ def phase_kernels(seed: int):
     h0, c0 = rnd(B, H, scale=0.1), rnd(B, H, scale=0.1)
     wt = rnd(4 * H, H, scale=1.0 / math.sqrt(3 * H))   # torch weight_hh
     wh = wt.t()
-    hk, ck = lstm_scan(xw, mask, h0, c0, wh)
+    hk, ck, ak = lstm_scan(xw, mask, h0, c0, wh, with_acts=True)
     torch.cuda.synchronize()
-    hr, cr = lstm_scan_ref(xw, mask, h0, c0, wh)
+    hr, cr, ar = _fwd_ref(xw, mask, h0, c0, wh)
     # bf16(h) feeds every product, so one-ulp differences in a token's
     # rounding (2^-8 relative) propagate through the 80-step chain
     err = max(check_close("lstm_scan h_seq", hk, hr, 2e-2, 0.0),
-              check_close("lstm_scan c_seq", ck, cr, 2e-2, 1e-2))
+              check_close("lstm_scan c_seq", ck, cr, 2e-2, 1e-2),
+              check_close("lstm_scan acts", ak, ar, 2e-2, 0.0))
+    # torch does not flatten bf16 cuDNN weights (it warns): each call
+    # compacts them first, a ~15 MB copy
     lstm_cudnn = torch.nn.LSTM(E, H, device=dev, dtype=bf)
-    x_in = rnd(T, B, E)
+    x_in = rnd(T, B, E).requires_grad_()
     packed = torch.nn.utils.rnn.pack_padded_sequence(
         x_in, lengths, enforce_sorted=False)
     n_bytes = 2 * (xw.numel() + mask.numel() + 2 * h0.numel() + wh.numel()
                    + 2 * T * B * H)
     b_ms, b_by = bound_ms(n_bytes, 2.0 * T * B * H * 4 * H)
-    rows.append(dict(
-        name="lstm_scan", shape="T80 B20 H1024 (one direction)",
-        max_abs_err=err,
-        ms=time_ms(lambda: lstm_scan(xw, mask, h0, c0, wh)),
-        plain_ms=time_ms(lambda: lstm_scan_ref(xw, mask, h0, c0, wh),
-                         iters=5),
-        library_ms=time_ms(lambda: lstm_cudnn(packed)),
-        library_call="torch.nn.LSTM (cuDNN) on a PackedSequence, input "
-                     "768 (includes the input projection)",
-        bound_ms=b_ms, bound_by=b_by))
+    with torch.no_grad():
+        rows.append(dict(
+            name="lstm_scan", shape="T80 B20 H1024 (one direction)",
+            max_abs_err=err,
+            ms=time_ms(lambda: lstm_scan(xw, mask, h0, c0, wh)),
+            plain_ms=time_ms(lambda: lstm_scan_ref(xw, mask, h0, c0, wh),
+                             iters=5),
+            library_ms=time_ms(lambda: lstm_cudnn(packed)),
+            library_call="torch.nn.LSTM (cuDNN) on a PackedSequence, input "
+                         "768 (includes the input projection)",
+            bound_ms=b_ms, bound_by=b_by))
+        ms_acts = time_ms(lambda: lstm_scan(xw, mask, h0, c0, wh,
+                                            with_acts=True))
+        print(f"  lstm_scan with the acts output (training): {ms_acts:.4f} "
+              "ms", flush=True)
 
+    # K2: the backward of the same direction; h_seq's cotangent at every
+    # token, c_seq's only at the last (the final carry feeds the decoder)
+    c_prev = torch.cat([c0[None], ck[:-1]])
+    g_h = rnd(T, B, H, scale=0.05)
+    g_c = torch.zeros_like(g_h)
+    g_c[-1] = rnd(B, H, scale=0.05)
+    bwd_args = (ak, c_prev, g_h, g_c, mask, wh)
+    got = lstm_scan_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    ref = lstm_scan_bwd_ref(*bwd_args)
+    # the same f32 arithmetic per token; the bf16 dgates of a token can
+    # round one ulp apart and carry on through the reverse chain
+    err = max(check_close(f"lstm_scan_bwd {key}", g_, r_, 0.0, 2e-2)
+              for key, g_, r_ in zip(("dxw", "dh0", "dc0"), got, ref))
+    out_c, _ = lstm_cudnn(packed)
+    go = rnd(*out_c.data.shape, scale=0.05)
+    lib_inputs = [x_in, *lstm_cudnn.parameters()]
+    n_bytes = (2 * (ak.numel() + 3 * g_h.numel() + mask.numel() + wh.numel()
+                    + ak.numel()) + 4 * 2 * B * H)
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * T * B * H * 4 * H)
+    rows.append(dict(
+        name="lstm_scan_bwd", shape="T80 B20 H1024 (one direction)",
+        max_abs_err=err,
+        ms=time_ms(lambda: lstm_scan_bwd(*bwd_args)),
+        plain_ms=time_ms(lambda: lstm_scan_bwd_ref(*bwd_args), iters=5),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            out_c.data, lib_inputs, go, retain_graph=True)),
+        library_call="backward of the torch.nn.LSTM (cuDNN) call above "
+                     "(includes the input-projection grads)",
+        bound_ms=b_ms, bound_by=b_by))
     # K3: the AdaIN gate, panorama (720 rows) and candidates (320 rows)
     C = 2048
     w_t = rnd(C, C, scale=1.0 / math.sqrt(C))           # torch a_fc.weight
@@ -242,6 +309,7 @@ def phase_kernels(seed: int):
         ms=time_ms(lambda: shift_attend(h, ctx, w_in, w_s, b_s)),
         plain_ms=time_ms(lambda: shift_attend_ref(h, ctx, w_in, w_s, b_s)),
         library_ms=None, library_call=None, bound_ms=b_ms, bound_by=b_by))
+    check_function_grads(rnd, mask, wh, w_t, bias, w_in, w_s, b_s)
     for r in rows:
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms ({r['library_call']})")
@@ -249,6 +317,61 @@ def phase_kernels(seed: int):
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {lib}", flush=True)
     return rows
+
+
+def check_function_grads(rnd, mask, wh, w_ta, b_a, w_in, w_s, b_s):
+    """Gradients of LstmScanFn, AdainGateFn and ShiftAttendFn (kernels
+    forward) against autograd through the plain versions, at the headline
+    shapes, for a random cotangent."""
+    import torch
+
+    from dasa_tpu_torch.ops.adain import AdainGateFn, adain_channel_gate_ref
+    from dasa_tpu_torch.ops.lstm import LstmScanFn, lstm_scan_ref
+    from dasa_tpu_torch.ops.shift_attention import (
+        ShiftAttendFn,
+        shift_attend_ref,
+    )
+
+    def grads(fn, leaves, cots):
+        leaves = [x.detach().clone().requires_grad_() for x in leaves]
+        outs = fn(*leaves)
+        return torch.autograd.grad(outs, leaves, cots)
+
+    def compare(name, fn, ref_fn, leaves, names, cots, rtol):
+        got = grads(fn, leaves, cots)
+        torch.cuda.synchronize()
+        ref = grads(ref_fn, leaves, cots)
+        return max(check_close(f"{name} d{key}", g, r, 0.0, rtol)
+                   for key, g, r in zip(names, got, ref))
+
+    T, B = mask.shape
+    H = wh.shape[0]
+    lstm_leaves = (rnd(T, B, 4 * H, scale=0.5), rnd(B, H, scale=0.1),
+                   rnd(B, H, scale=0.1), wh)
+    g_c = torch.zeros(T, B, H, device=mask.device, dtype=mask.dtype)
+    g_c[-1] = rnd(B, H, scale=0.05)
+    # the kernel path rounds the gates, c_prev and dgates to bf16 where the
+    # plain autograd keeps f32 (the TPU package's design): a few percent
+    compare("LstmScanFn",
+            lambda xw, h0, c0, w: LstmScanFn.apply(xw, mask, h0, c0, w),
+            lambda xw, h0, c0, w: lstm_scan_ref(xw, mask, h0, c0, w),
+            lstm_leaves, ("xw", "h0", "c0", "wh"),
+            (rnd(T, B, H, scale=0.05), g_c), 5e-2)
+    C = w_ta.shape[0]
+    f, d = rnd(B, 36, C).relu(), rnd(B, 36, C).relu()
+    noise = (rnd(C) > -0.25).to(f.dtype) / 0.6
+    # the same f32 arithmetic; the outputs round to bf16 once
+    compare("AdainGateFn", AdainGateFn.apply, adain_channel_gate_ref,
+            (f, d, w_ta.t(), b_a, noise), ("f", "d", "w", "b", "noise"),
+            (rnd(B, 36, C, scale=0.05),), 2e-2)
+    h = rnd(B, H, scale=0.5)
+    ctx = rnd(B, 36, w_in.shape[1]).relu()
+    # the plain version rounds the smoothed attention to bf16
+    compare("ShiftAttendFn", ShiftAttendFn.apply, shift_attend_ref,
+            (h, ctx, w_in, w_s, b_s), ("h", "ctx", "w_in", "w_shift",
+                                       "b_shift"),
+            (rnd(B, w_in.shape[1], scale=0.05),
+             rnd(B, 36, scale=0.05).float()), 2e-2)
 
 
 def headline_world(root: str, seed: int, **overrides):
@@ -261,7 +384,7 @@ def headline_world(root: str, seed: int, **overrides):
     data = os.path.join(root, "task")
     write_synthetic_connectivity(conn, ["synthA", "synthB"], n_nodes=40,
                                  seed=seed)
-    make_synthetic_task(data, ["synthA"], ["synthB"], n_train=4, n_val=10,
+    make_synthetic_task(data, ["synthA"], ["synthB"], n_train=10, n_val=10,
                         connectivity_dir=conn, seed=seed)
     cfg = Config(**HEADLINE, data_dir=data, connectivity_dir=conn,
                  seed=seed, **overrides)
@@ -305,9 +428,9 @@ def phase_main(cfg, world, seed: int):
           f"{agent.total_env_steps / seconds:.2f} agent-steps/s "
           f"({agent.total_env_steps} agent-steps)", flush=True)
     print(f"  launches during valid(): {launches}", flush=True)
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} never launched on the main path")
+    for name in EVAL_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} never launched during valid()")
     return agent, launches
 
 
@@ -345,25 +468,140 @@ def phase_compare(cfg, world, agent_always, seed: int):
           f"= {same / len(trajs[0]):.3f}", flush=True)
 
 
-def phase_profile(cfg, world, seed: int):
-    """Where one eval batch's time goes on the card."""
+def phase_train(cfg, world, seed: int, root: str):
+    """train() at headline width; each iteration timed on its own."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.train.trainer import make_agent, train
+
+    cfg = cfg.replace(iters=TRAIN_ITERS, log_every=1, val_every=10 ** 9,
+                      save_every=10 ** 9, snap_dir=os.path.join(root, "snap"),
+                      log_dir=os.path.join(root, "log"))
+    agent = make_agent(cfg, world, rng_seed=seed)
+    trained = ("encoder.lstm.", "decoder.", "critic.", "adain.")
+    before = {name: p.detach().clone()
+              for name, p in agent.policy.named_parameters()
+              if name.startswith(trained)}
+    iter_s = []
+    run_iters = agent.train
+
+    def timed(n_iters, feedback):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        run_iters(n_iters, feedback=feedback)
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - start)
+
+    agent.train = timed  # train() runs one iteration per log interval
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    start = time.perf_counter()
+    train(cfg, world, agent=agent)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in agent.logs["loss"]]
+    steps = agent.env_steps_total()
+    print(f"  launches during train(): {launches}", flush=True)
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} never launched during train()")
+    if len(iter_s) != TRAIN_ITERS or agent.iter_count != TRAIN_ITERS:
+        fail(f"train(): {agent.iter_count} optimizer steps, "
+             f"{len(iter_s)} timed iterations, expected {TRAIN_ITERS}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train(): non-finite loss in {losses}")
+    moved = {name.split(".")[0] for name, p in agent.policy.named_parameters()
+             if name in before and not torch.equal(p.detach(), before[name])}
+    print(f"  losses of the last pass pair: {losses}; components moved: "
+          f"{sorted(moved)}", flush=True)
+    if moved != {"encoder", "decoder", "critic", "adain"}:
+        fail(f"train(): parameters of {sorted(moved)} moved, expected the "
+             "encoder's BiLSTM, decoder, critic and adain")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"  train(): {seconds:.2f} s for {TRAIN_ITERS} iterations "
+          f"(checkpoint included); iteration s {[round(x, 4) for x in iter_s]}"
+          f", median after the first {statistics.median(iter_s[1:]):.4f} s; "
+          f"{steps / sum(iter_s):.2f} training agent-steps/s ({steps} "
+          f"agent-steps); peak memory {peak / 2 ** 30:.2f} GiB; card "
+          f"{card}", flush=True)
+    return launches
+
+
+def phase_train_compare(cfg, world, seed: int):
+    """Same weights under use_pallas always vs never, dropout off: one
+    fused argmax pass with train_ml=0.2."""
+    import torch
+
+    from dasa_tpu_torch.train.trainer import make_agent
+
+    cfg = cfg.replace(dropout=0.0, featdropout=0.0, d_dropout_ratio=0.0,
+                      d_hidden_dropout_prob=0.0, d_attn_dropout_prob=0.0)
+    env = world.envs["train"]
+    state, results = None, []
+    for mode in ("always", "never"):
+        agent = make_agent(cfg.replace(use_pallas=mode), world,
+                           rng_seed=seed)
+        if state is None:
+            state = agent.policy.state_dict()
+        agent.policy.load_state_dict(state)
+        agent.env = env
+        env.reset_epoch()
+        evals = agent._device_eval(*agent._batch_inputs())
+        env.reset_epoch()
+        record = {}
+        agent.zero_grad()
+        agent.device_rollout(train_ml=0.2, train_rl=True, feedback="argmax",
+                             record=record)
+        grad = torch.cat([p.grad.float().flatten()
+                          for p in agent.policy.parameters()
+                          if p.grad is not None])
+        paths = [[tuple(rec["action"][rec["active"][:, i], i].tolist())
+                  for i in range(rec["action"].shape[1])]
+                 for rec in (record["stacked"], evals)]
+        # with dropout off the training pass's forward is the evaluation
+        # forward of the same batch: the same actions
+        same_eval = sum(a == b for a, b in zip(*paths))
+        print(f"  {mode}: training-pass trajectories equal to the "
+              f"evaluation's: {same_eval}/{len(paths[0])}", flush=True)
+        if same_eval != len(paths[0]):
+            fail(f"train-compare ({mode}): the argmax training pass and "
+                 "the evaluation of the same batch took different actions")
+        results.append((float(agent.losses[-1]), grad, paths[0]))
+        del agent
+    (la, ga, pa), (ln, gn, pn) = results
+    cos = float(torch.dot(ga, gn) / (ga.norm() * gn.norm()))
+    same = sum(a == b for a, b in zip(pa, pn))
+    print(f"  argmax pass loss always {la:.6f} never {ln:.6f}; gradient "
+          f"cosine {cos:.6f}; equal trajectories {same}/{len(pa)}",
+          flush=True)
+    # the kernel path keeps the BiLSTM carry and the AdaIN epilogue in f32
+    # where the plain path rounds to bf16: a few bf16 ulps of the loss
+    if not abs(la - ln) <= 5e-2 * abs(ln):
+        fail(f"train-compare: loss {la} vs {ln} beyond 5%")
+    if not cos >= 0.99:
+        fail(f"train-compare: gradient cosine {cos} below 0.99")
+
+
+def profile_window(label: str, fn, steps_of):
+    """fn() once under torch.profiler: device busy share of its wall time
+    and device time by kernel; steps_of() counts its agent-steps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dasa_tpu_torch.train.trainer import make_agent
-
-    agent = make_agent(cfg, world, rng_seed=seed)
-    agent.env = world.envs["val_unseen"]
-    agent.env.reset_epoch()
-    agent._device_test_batch()  # warm-up: weight casts, library handles
-    agent.env.reset_epoch()
     torch.cuda.synchronize()
-    steps0 = agent.total_env_steps
+    steps0 = steps_of()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        agent._device_test_batch()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     rows = []  # device-side events only (kernels, copies, sets)
@@ -374,16 +612,37 @@ def phase_profile(cfg, world, seed: int):
             rows.append((dev_us / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    print(f"  batch wall {wall_ms:.2f} ms for {agent.total_env_steps - steps0}"
-          f" agent-steps; device busy {device_ms:.2f} ms "
+    print(f"  {label}: wall {wall_ms:.2f} ms for {steps_of() - steps0} "
+          f"agent-steps; device busy {device_ms:.2f} ms "
           f"({100 * device_ms / wall_ms:.1f}% of wall)", flush=True)
-    for ms, count, key in rows[:20]:
+    for ms, count, key in rows[:25]:
         print(f"    {ms:9.3f} ms {count:6d}x  {key[:90]}", flush=True)
+
+
+def phase_profile(cfg, cfg_train, world, seed: int):
+    """Where one eval batch's and one training iteration's time goes."""
+    from dasa_tpu_torch.train.trainer import make_agent
+
+    agent = make_agent(cfg, world, rng_seed=seed)
+    agent.env = world.envs["val_unseen"]
+    agent.env.reset_epoch()
+    agent._device_test_batch()  # warm-up: weight casts, library handles
+    agent.env.reset_epoch()
+    profile_window("eval batch", agent._device_test_batch,
+                   lambda: agent.total_env_steps)
+    del agent
+    agent = make_agent(cfg_train, world, rng_seed=seed)
+    agent.env = world.envs["train"]
+    agent.train(1, feedback="sample")  # warm-up
+    profile_window("training iteration (teacher + sample + optim)",
+                   lambda: agent.train(1, feedback="sample"),
+                   agent.env_steps_total)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,main,compare")
+    ap.add_argument("--phases",
+                    default="build,kernels,main,compare,train,train-compare")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -409,18 +668,30 @@ def main() -> None:
     if "kernels" in phases:
         print("== phase 2: kernels against their plain versions", flush=True)
         rows = phase_kernels(args.seed)
-    launches = {}
-    if phases & {"main", "compare", "profile"}:
+    launches_eval, launches = {}, {}
+    if phases & {"main", "compare", "train", "train-compare", "profile"}:
         with tempfile.TemporaryDirectory() as root:
             cfg, world = headline_world(root, args.seed, use_pallas="always")
-            print("== phase 3: valid() at headline width", flush=True)
-            agent, launches = phase_main(cfg, world, args.seed)
-            if "compare" in phases:
-                print("== phase 4: use_pallas always vs never", flush=True)
-                phase_compare(cfg, world, agent, args.seed)
+            cfg_train = cfg.replace(**TRAIN)
+            if phases & {"main", "compare"}:
+                print("== phase 3: valid() at headline width", flush=True)
+                agent, launches_eval = phase_main(cfg, world, args.seed)
+                if "compare" in phases:
+                    print("== phase 4: use_pallas always vs never",
+                          flush=True)
+                    phase_compare(cfg, world, agent, args.seed)
+                del agent
+            if "train" in phases:
+                print("== phase 5: train() at headline width", flush=True)
+                launches = phase_train(cfg_train, world, args.seed, root)
+            if "train-compare" in phases:
+                print("== phase 6: training pass, use_pallas always vs "
+                      "never", flush=True)
+                phase_train_compare(cfg_train, world, args.seed)
             if "profile" in phases:
-                print("== profile: one eval batch", flush=True)
-                phase_profile(cfg, world, args.seed)
+                print("== profile: one eval batch, one training iteration",
+                      flush=True)
+                phase_profile(cfg, cfg_train, world, args.seed)
     out = []
     for r in rows:
         base = r["name"].split("[")[0]
@@ -428,6 +699,7 @@ def main() -> None:
         out.append({"name": r["name"], "route": "cuda", "source": src,
                     "replaces": replaces,
                     "launches": launches.get(base, 0),
+                    "launches_eval": launches_eval.get(base, 0),
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -1,18 +1,36 @@
-"""The navigation agent: argmax evaluation on the device.
+"""The navigation agent: episodic device training and argmax evaluation.
 
-Counterpart of the evaluation path of ``dasa_tpu/agents/seq2seq.py``
-(``make_step_inputs`` :65, ``_device_eval_fn`` :2023,
-``_device_test_batch`` :2092, ``test`` :2143; reference
-r2r_src/agent_dg.py:58-100, 725-936).  Feature tables and env tables live
-on the device; one eval batch runs its whole episode (policy, transitions)
-as a Python loop over ``max_action`` steps with no host env in the loop,
-then the host rebuilds the trajectories from the recorded (T, B) node,
-view and action tensors.  Training, the host rollout and the streamed
-eval come with later slices (ROADMAP.md).
+Counterpart of ``dasa_tpu/agents/seq2seq.py`` (reference
+r2r_src/agent_dg.py:58-100, 633-1510).  Feature tables and env tables live
+on the device, and the graph walk is tensor gathers
+(``env/device_env.py``), so no host env runs mid-episode:
+
+- evaluation (``_device_eval_fn`` :2023, ``test`` :2143): one batch runs
+  its whole argmax episode as a Python loop over ``max_action`` steps; the
+  host rebuilds the trajectories from the recorded (T, B) tensors;
+- training (``device_rollout`` :1537): a teacher pass walks the shortest
+  path with gathers only and replays it as ONE batched-percept forward
+  plus the sequential decoder; a sampled (or argmax) pass runs the policy,
+  the env transition and the loss bookkeeping step by step, stops once
+  every row has ended, and ends in the reversed A2C pass.  Autograd
+  accumulates both passes' gradients in the parameters' ``.grad``;
+  ``optim_step`` applies them.
+
+Dropout masks, the env-drop noise and sampled actions draw from one
+``torch.Generator`` reseeded per rollout from (seed, rollout counter), the
+JAX agent's ``fold_in(_base_rng, _rollout_counter)``; the two frameworks'
+streams differ, so parity with the JAX package holds with dropout off and
+the noise passed in.  The host act/replay rollout, the stream regime, the
+combined 2B-wide program (``fuse_passes="auto"``), ``remat`` other than
+``never``, selfTrain and data parallel raise ``NotImplementedError``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+from collections import defaultdict
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -32,7 +50,7 @@ from dasa_tpu_torch.models.featurize import (
     assemble_candidates,
     assemble_pano,
 )
-from dasa_tpu_torch.models.layers import NEG_INF
+from dasa_tpu_torch.models.layers import NEG_INF, cast_params_once
 from dasa_tpu_torch.models.policy import (
     DasaPolicy,
     DecoderState,
@@ -40,10 +58,15 @@ from dasa_tpu_torch.models.policy import (
     decoder_state_width,
 )
 from dasa_tpu_torch.sim.engine import micro_trajectory
+from dasa_tpu_torch.train.optim import COMPONENTS, ComponentOptimizer
 from dasa_tpu_torch.utils.angles import all_point_angle_feature
 from dasa_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the observation fields a replay re-reads (seq2seq.py:682-684)
+REC_KEYS = ("feat_row", "view_index", "heading", "elevation",
+            "cand_point_id", "cand_heading", "cand_elevation", "cand_n",
+            "teacher", "back_teacher", "logit_mask")
 
 
 def make_step_inputs(cfg: Config, tables, sobs) -> StepInputs:
@@ -69,15 +92,48 @@ def make_step_inputs(cfg: Config, tables, sobs) -> StepInputs:
     return StepInputs(act_feat, f_t, d_t, cand, cand_d, sobs["logit_mask"])
 
 
+def _entropy(logp, p):
+    return -torch.where(p > 0, p * logp, 0.0).sum(-1)
+
+
+def _env_and_reward(arrays, sobs, node, view, action, ended, goal_local):
+    """Transition + reward shaping (agent_dg.py:900-926,
+    seq2seq.py:703-716): +1 / -1 for a move closer to / away from the
+    goal, +2 / -2 for stopping within / beyond 3 m, 0 once ended."""
+    new_node, new_view, stop = device_transition(arrays, node, view, action,
+                                                 ended)
+    dist_new = arrays[6][new_node, goal_local]
+    delta = sobs["distance"] - dist_new
+    move_r = (delta > 0).float() - (delta < 0).float()
+    stop_r = torch.where(dist_new < 3.0, 2.0, -2.0)
+    reward = torch.where(ended, 0.0, torch.where(stop, stop_r, move_r))
+    return new_node, new_view, ended | stop, reward
+
+
+def _record(sobs, ended, is_first: bool, action):
+    """The replay's per-step record of an observation."""
+    rec = {key: sobs[key] for key in REC_KEYS}
+    rec["active"] = ~ended
+    rec["is_first"] = torch.full_like(ended, is_first)
+    rec["action"] = action
+    return rec
+
+
+def _stack(recs: List[dict]) -> dict:
+    return {key: torch.stack([r[key] for r in recs]) for key in recs[0]}
+
+
 class Seq2SeqAgent:
-    """Listener agent for the DASA dg path, argmax evaluation only.
+    """Listener agent for the DASA dg path: episodic device training
+    (teacher-ML + sampled A2C) and argmax evaluation.
 
     Runs on CUDA unless ``device`` names another device (the tests pass
     ``device="cpu"``).  Compute runs in ``cfg.compute_dtype`` on the card
     and in f32 on the CPU; parameters are f32, made from ``rng_seed``.
     ``cfg.use_pallas`` keeps the JAX package's meaning: ``auto`` routes
-    only the top BiLSTM through its kernel, ``always`` also the AdaIN
-    gate and the shift attention, ``never`` none."""
+    only the top BiLSTM of the sampled pass and of evaluation through its
+    kernels, ``always`` also the AdaIN gate and the shift attention,
+    ``never`` none."""
 
     def __init__(self, cfg: Config, env: Optional[R2REnv],
                  feature_db: FeatureDB,
@@ -93,8 +149,17 @@ class Seq2SeqAgent:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed + rng_seed)
             policy = DasaPolicy(cfg, compute_dtype=dtype)
+        # eval mode: dropout is explicit (a generator per pass), never
+        # nn.Module.training
         self.policy = policy.to(self.device).eval()
         self._lstm_kernel = cfg.use_pallas != "never"
+        self.optimizer = ComponentOptimizer(cfg, self.policy)
+        self._seed = cfg.seed + rng_seed
+        self._gen = torch.Generator(device=self.device)
+        self._rollout_counter = 0
+        self._env_steps_log: List[torch.Tensor] = []
+        self.losses: List[torch.Tensor] = []
+        self.logs = defaultdict(list)
 
         def table(values):
             return torch.as_tensor(np.asarray(values)).to(self.device, dtype)
@@ -273,3 +338,429 @@ class Seq2SeqAgent:
     def get_results(self) -> List[dict]:
         """Reference API parity (BaseAgent.get_results)."""
         return list(self.results.values())
+
+    # ------------------------------------------------------------------
+    # training: the episodic device regime (seq2seq.py:327-1204, 1400-1570,
+    # 1907-2015)
+    # ------------------------------------------------------------------
+    @property
+    def iter_count(self) -> int:
+        return self.optimizer.iteration
+
+    def _require_device_training(self) -> None:
+        """Training paths of the JAX agent that this port leaves out."""
+        cfg = self.cfg
+        missing = []
+        if not self.use_device_rollout():
+            missing.append("the host act/replay rollout (device_rollout="
+                           "never, submit, or an env without graphs)")
+        if cfg.rollout_mode == "stream":
+            missing.append("the stream regime (rollout_mode=stream)")
+        if cfg.fuse_passes != "never":
+            missing.append("the combined 2B-wide program (fuse_passes=auto)")
+        if cfg.remat != "never":
+            missing.append(f"remat={cfg.remat!r}")
+        if cfg.self_train:
+            missing.append("selfTrain back-translation")
+        if missing:
+            raise NotImplementedError(
+                "Seq2SeqAgent training: " + "; ".join(missing)
+                + " is not ported (ROADMAP.md); the port trains the "
+                "episodic device regime")
+
+    def _rollout_generator(self) -> torch.Generator:
+        """The generator of the next rollout, reseeded from (seed, rollout
+        counter) as the JAX agent folds its counter into ``_base_rng``
+        (seq2seq.py:1420-1422), so a rollout's draws do not depend on
+        earlier ones."""
+        self._gen.manual_seed(self._seed * 1_000_003 + self._rollout_counter)
+        self._rollout_counter += 1
+        return self._gen
+
+    def _noise_fn(self, gen: torch.Generator) -> torch.Tensor:
+        """The consistent env-drop mask of one rollout (seq2seq.py:327):
+        each visual channel kept with probability 1 - featdropout, and
+        scaled by 1 / (1 - featdropout)."""
+        p = self.cfg.featdropout
+        keep = torch.rand(self.cfg.feature_size, generator=gen,
+                          device=self.device) < 1.0 - p
+        return keep.to(self.dtype) / (1.0 - p)
+
+    def _cast_params_once(self):
+        """Under ``bf16_grad_accum`` with a bf16 compute dtype, the pass
+        reads ONE bf16 copy of each weight, so the weight's gradient
+        accumulates in bf16 across steps as in the JAX agent
+        (seq2seq.py:384) instead of being cast per use."""
+        if self.cfg.bf16_grad_accum and self.dtype == torch.bfloat16:
+            return cast_params_once(self.policy, self.dtype)
+        return contextlib.nullcontext()
+
+    def _teacher_len(self) -> int:
+        """Step bound of teacher-forced episodes (seq2seq.py:755): the
+        longest dataset path (shortest-path hops <= len(path) - 1, + STOP)
+        + 1 margin, capped at max_action."""
+        t_max = self.cfg.max_action
+        if self.env is None or not getattr(self.env, "data", None):
+            return t_max
+        return min(t_max, max(len(item["path"]) for item in self.env.data)
+                   + 1)
+
+    def _device_rollout_args(self, env_noise: Optional[torch.Tensor]):
+        """Reset the env to its next minibatch and gather a pass's inputs:
+        the device episode inputs, the rollout's generator and, under
+        ``consistent_drop``, its env-drop noise (seq2seq.py:1400).
+        ``env_noise`` replaces the drawn noise (parity tests pass the JAX
+        agent's)."""
+        dev, ep, instr, valid, seq_len = self._batch_inputs()
+        gen = self._rollout_generator()
+        noise = None
+        if self.cfg.consistent_drop:
+            noise = (self._noise_fn(gen) if env_noise is None
+                     else env_noise.to(self.device, self.dtype))
+        return dev, ep, instr, valid, seq_len, gen, noise
+
+    def _teacher_trajectory(self, dev: DeviceEnvTables, ep, n_steps: int):
+        """Phase A of the teacher pass (seq2seq.py:718-743): the
+        shortest-path walk of ``n_steps`` steps, gathers only, no policy.
+        Returns (stacked records, final record, rewards, rl masks, final
+        ended)."""
+        arrays = dev.arrays()
+        k = self.cfg.max_candidates
+        goal, start = ep["goal"], ep["start"]
+        goal_local = goal - arrays[8][goal]
+        total_dist = arrays[6][ep["node0"], goal_local]
+        node, view = ep["node0"], ep["view0"]
+        ended = torch.zeros_like(node, dtype=torch.bool)
+        recs, rewards, masks = [], [], []
+        for t in range(n_steps):
+            sobs = device_obs(arrays, node, view, goal, start, total_dist, k)
+            action = sobs["teacher"]
+            recs.append(_record(sobs, ended, t == 0,
+                                torch.minimum(action, sobs["cand_n"])))
+            masks.append((~ended).float())
+            node, view, ended, reward = _env_and_reward(
+                arrays, sobs, node, view, action, ended, goal_local)
+            rewards.append(reward)
+        sobs = device_obs(arrays, node, view, goal, start, total_dist, k)
+        final = _record(sobs, ended, False, torch.zeros_like(node))
+        return (_stack(recs), final, torch.stack(rewards), torch.stack(masks),
+                ended)
+
+    def _finish_loss(self, batch: int, outs: List[tuple], rewards, rl_masks,
+                     g0, ml_weight: float, rl_weight: float,
+                     ent_weight: float):
+        """The IL + A2C loss from per-step (ce, logp_a, entropy, value)
+        (seq2seq.py:522-591, 1119-1202): ml_weight * sum(ce) / batch, and
+        the A2C loss of the discounted returns bootstrapped from ``g0``,
+        normalized by ``normalize_loss``."""
+        cfg = self.cfg
+        ce, logp_a, ent, value = (torch.stack(x) for x in zip(*outs))
+        ml_loss = ce.sum()
+        total_loss = ml_weight * ml_loss / batch
+        returns, g = [], g0
+        for t in reversed(range(rewards.shape[0])):
+            g = g * cfg.gamma + rewards[t]
+            returns.append(g)
+        returns = torch.stack(returns[::-1])
+        adv = (returns - value).detach()
+        critic = 0.5 * (((returns - value) ** 2) * rl_masks).sum()
+        rl_loss = ((-logp_a * adv * rl_masks).sum() + critic
+                   + (-ent_weight * ent * rl_masks).sum())
+        total = rl_masks.sum()
+        if cfg.normalize_loss == "total":
+            rl_loss = rl_loss / total.clamp(min=1.0)
+        elif cfg.normalize_loss == "batch":
+            rl_loss = rl_loss / batch
+        total_loss = total_loss + rl_weight * rl_loss
+        logs = {"forth_loss": ml_loss, "entropy": ent.sum(),
+                "ml_loss": ml_loss, "rl_loss": rl_weight * rl_loss,
+                "critic_loss": rl_weight * critic, "total": total,
+                "loss": total_loss}
+        return total_loss, logs
+
+    def _step_outs(self, logit, value, sobs, action, active):
+        """(ce, logp_a, entropy, value) of one step: cross-entropy with the
+        teacher on active rows, the log-probability of the taken action
+        (STOP for any slot past the candidates)."""
+        masked = logit.float().masked_fill(sobs["logit_mask"], NEG_INF)
+        logp = torch.log_softmax(masked, dim=-1)
+        ce = -logp.gather(1, sobs["teacher"][:, None])[:, 0]
+        ce = torch.where(active, ce, torch.zeros_like(ce))
+        a_rec = torch.minimum(action, sobs["cand_n"])
+        logp_a = logp.gather(1, a_rec[:, None])[:, 0]
+        return ce, logp_a, _entropy(logp, logp.exp()), value.float()
+
+    def _replay_loss(self, instr, valid, seq_len, stacked, final_sobs,
+                     rewards, rl_masks, final_ended, gen, env_noise,
+                     ml_weight: float, rl_weight: float, ent_weight: float):
+        """The replay body (seq2seq.py:399-593) over a recorded episode:
+        the percepts of ALL steps and of the A2C bootstrap run as ONE
+        ((T+1) * B)-row batch (the top BiLSTM on its plain path, as the
+        JAX replay passes no ``lstm_pallas``), then the decoder steps
+        through the recorded observations and actions.  Returns (loss,
+        logs)."""
+        cfg, policy = self.cfg, self.policy
+        n_steps, batch = rewards.shape
+        rep = n_steps + 1
+        cached = policy.encode_text(instr, valid, seq_len,
+                                    deterministic=False, gen=gen)
+        flat = {key: torch.cat([stacked[key], final_sobs[key][None]]).flatten(
+            0, 1) for key in REC_KEYS}
+        percepts = policy.percept_step(
+            {"text_embeds": cached["text_embeds"].repeat(rep, 1, 1)},
+            valid.repeat(rep, 1), seq_len.repeat(rep),
+            make_step_inputs(cfg, self.tables, flat), lstm_kernel=False,
+            deterministic=False, env_noise=env_noise, gen=gen)
+
+        def percept_at(t):
+            def part(x):
+                return x.unflatten(0, (rep, batch))[t]
+            return {"ctx": part(percepts["ctx"]), "h0": part(percepts["h0"]),
+                    "c0": part(percepts["c0"]),
+                    "inputs": StepInputs(*(part(x)
+                                           for x in percepts["inputs"]))}
+
+        width = decoder_state_width(cfg)
+        zeros = torch.zeros(batch, width, dtype=self.dtype,
+                            device=self.device)
+        state = DecoderState(zeros, zeros, zeros)
+        dropfeat = env_noise is not None
+        outs = []
+        for t in range(n_steps):
+            sobs = {key: val[t] for key, val in stacked.items()}
+            state, logit, value, _aux = policy.decode_from_percept(
+                percept_at(t), valid, state, sobs["is_first"],
+                deterministic=False, already_dropfeat=dropfeat, gen=gen)
+            outs.append(self._step_outs(logit, value, sobs, sobs["action"],
+                                        sobs["active"]))
+        _, _, last_value, _ = policy.decode_from_percept(
+            percept_at(n_steps), valid, state, final_sobs["is_first"],
+            deterministic=False, already_dropfeat=dropfeat, gen=gen)
+        last_value = last_value.detach().float()
+        g0 = torch.where(final_ended, torch.zeros_like(last_value),
+                         last_value)
+        return self._finish_loss(batch, outs, rewards, rl_masks, g0,
+                                 ml_weight, rl_weight, ent_weight)
+
+    def _fused_loss(self, feedback: str, dev: DeviceEnvTables, ep, instr,
+                    valid, seq_len, gen, env_noise, ml_weight: float,
+                    rl_weight: float, ent_weight: float,
+                    record: Optional[dict] = None):
+        """The sampled / argmax pass (seq2seq.py:765-1204, one pass wide):
+        per step the policy forward (the top BiLSTM through its kernels
+        unless ``use_pallas="never"``), the action, the env transition and
+        the reward, until every row has ended (the JAX program's
+        all-ended cond, :1013-1017: the remaining steps add nothing); then
+        the bootstrap value at the final state and the reversed A2C pass.
+        ``record``, when given, receives the episode in the replay's form
+        (tests replay it).  Returns (loss, logs)."""
+        cfg, policy = self.cfg, self.policy
+        arrays = dev.arrays()
+        k = cfg.max_candidates
+        batch = instr.shape[0]
+        cached = policy.encode_text(instr, valid, seq_len,
+                                    deterministic=False, gen=gen)
+        goal, start = ep["goal"], ep["start"]
+        goal_local = goal - arrays[8][goal]
+        total_dist = arrays[6][ep["node0"], goal_local]
+        width = decoder_state_width(cfg)
+        zeros = torch.zeros(batch, width, dtype=self.dtype,
+                            device=self.device)
+        state = DecoderState(zeros, zeros, zeros)
+        node, view = ep["node0"], ep["view0"]
+        ended = torch.zeros_like(node, dtype=torch.bool)
+        dropfeat = env_noise is not None
+
+        def policy_forward(sobs, state):
+            inputs = make_step_inputs(cfg, self.tables, sobs)
+            return policy.policy_step(
+                cached, valid, seq_len, inputs, state, sobs["is_first"],
+                lstm_kernel=self._lstm_kernel, deterministic=False,
+                env_noise=env_noise, gen=gen)
+
+        outs, rewards, masks, recs = [], [], [], []
+        for t in range(cfg.max_action):
+            if bool(ended.all()):
+                break
+            sobs = device_obs(arrays, node, view, goal, start, total_dist, k)
+            sobs["is_first"] = torch.full_like(ended, t == 0)
+            state, logit, value, _aux = policy_forward(sobs, state)
+            masked = logit.detach().float().masked_fill(sobs["logit_mask"],
+                                                        NEG_INF)
+            if feedback == "sample":
+                action = torch.multinomial(torch.softmax(masked, dim=-1), 1,
+                                           generator=gen)[:, 0]
+            elif feedback == "argmax":
+                action = masked.argmax(dim=-1)
+            else:
+                raise ValueError(feedback)
+            outs.append(self._step_outs(logit, value, sobs, action, ~ended))
+            masks.append((~ended).float())
+            if record is not None:
+                recs.append(_record(sobs, ended, t == 0,
+                                    torch.minimum(action, sobs["cand_n"])))
+            node, view, ended, reward = _env_and_reward(
+                arrays, sobs, node, view, action, ended, goal_local)
+            rewards.append(reward)
+        rewards, masks = torch.stack(rewards), torch.stack(masks)
+        sobs = device_obs(arrays, node, view, goal, start, total_dist, k)
+        sobs["is_first"] = torch.zeros_like(ended)
+        g0 = torch.zeros(batch, device=self.device)
+        if not bool(ended.all()):
+            # A2C bootstrap at t = T (seq2seq.py:1144-1153); its value is
+            # a constant of the loss
+            with torch.no_grad():
+                _, _, last_value, _ = policy_forward(sobs, state)
+            g0 = torch.where(ended, g0, last_value.float())
+        if record is not None:
+            record.update(stacked=_stack(recs), rewards=rewards,
+                          rl_masks=masks, final_ended=ended,
+                          final_sobs=_record(sobs, ended, False,
+                                             torch.zeros_like(node)))
+        loss, logs = self._finish_loss(batch, outs, rewards, masks, g0,
+                                       ml_weight, rl_weight, ent_weight)
+        logs["env_steps"] = masks.sum().long()
+        return loss, logs
+
+    def device_rollout(self, train_ml: Optional[float] = None,
+                       train_rl: bool = True,
+                       feedback: Optional[str] = None,
+                       env_noise: Optional[torch.Tensor] = None,
+                       record: Optional[dict] = None) -> None:
+        """One training episode batch on the device (seq2seq.py:1537):
+        the teacher pass or the sampled / argmax pass, whose gradients
+        autograd adds to the parameters' ``.grad``.  Fetches nothing from
+        the device.  ``env_noise`` replaces the drawn env-drop noise;
+        ``record`` receives a sampled / argmax episode (both for tests)."""
+        self._require_device_training()
+        feedback = feedback or self.cfg.feedback
+        train_rl = train_rl and feedback == "sample"
+        dev, ep, instr, valid, seq_len, gen, noise = \
+            self._device_rollout_args(env_noise)
+        weights = (train_ml if train_ml is not None else 0.0,
+                   1.0 if train_rl else 0.0,
+                   0.01 if (train_rl and feedback == "sample") else 0.0)
+        with self._cast_params_once():
+            if feedback == "teacher":
+                stacked, final, rewards, masks, ended = \
+                    self._teacher_trajectory(dev, ep, self._teacher_len())
+                loss, logs = self._replay_loss(
+                    instr, valid, seq_len, stacked, final, rewards, masks,
+                    ended, gen, noise, *weights)
+                logs["env_steps"] = stacked["active"].sum()
+            else:
+                loss, logs = self._fused_loss(
+                    feedback, dev, ep, instr, valid, seq_len, gen, noise,
+                    *weights, record=record)
+                if record is not None:
+                    record.update(instr=instr, valid=valid, seq_len=seq_len)
+        loss.backward()
+        self._env_steps_log.append(logs.pop("env_steps"))
+        for key, val in logs.items():
+            self.logs[key].append(val.detach())
+        self.losses.append(loss.detach())
+
+    def env_steps_total(self) -> int:
+        """(episode, step) pairs processed: the evaluation counter plus the
+        training rollouts' device counts (seq2seq.py:1565; fetches them)."""
+        return self.total_env_steps + sum(int(x) for x in
+                                          self._env_steps_log)
+
+    def zero_grad(self) -> None:
+        self.policy.zero_grad(set_to_none=True)
+        self.losses = []
+
+    def accumulate_gradient(self, feedback: str = "teacher",
+                            ml_weight: Optional[float] = None) -> None:
+        """The device branch of the two-pass accumulation
+        (seq2seq.py:1912, agent_dg.py:1347-1384): a teacher pass at
+        ``teacher_weight``, or a teacher-ML pass at ``ml_weight``
+        (default ``cfg.ml_weight``; the aug alternation passes the org /
+        aug weights) followed by a sampled A2C pass."""
+        cfg = self.cfg
+        if ml_weight is None:
+            ml_weight = cfg.ml_weight
+        if feedback == "teacher":
+            self.device_rollout(train_ml=cfg.teacher_weight, train_rl=False,
+                                feedback="teacher")
+        elif feedback == "sample":
+            self.device_rollout(train_ml=ml_weight, train_rl=False,
+                                feedback="teacher")
+            self.device_rollout(train_ml=None, train_rl=True,
+                                feedback="sample")
+        else:
+            raise ValueError(feedback)
+
+    def optim_step(self) -> None:
+        """Apply the accumulated gradients (seq2seq.py:1981), then clear
+        them; a no-op when nothing was accumulated."""
+        if all(p.grad is None for p in self.policy.parameters()):
+            return
+        self.optimizer.step()
+        self.policy.zero_grad(set_to_none=True)
+
+    def train(self, n_iters: int, feedback: str = "teacher") -> None:
+        """``n_iters`` optimizer iterations (seq2seq.py:1990): zero_grad,
+        the teacher pass (and, under ``sample``, the sampled A2C pass after
+        a teacher-ML pass at ``ml_weight`` unless it is 0), optim_step."""
+        for _ in range(n_iters):
+            self.zero_grad()
+            if feedback == "teacher":
+                self.accumulate_gradient("teacher")
+            elif feedback == "sample":
+                if self.cfg.ml_weight != 0:
+                    self.device_rollout(train_ml=self.cfg.ml_weight,
+                                        train_rl=False, feedback="teacher")
+                self.device_rollout(train_ml=None, train_rl=True,
+                                    feedback="sample")
+            else:
+                raise ValueError(feedback)
+            self.optim_step()
+
+    # ------------------------------------------------------------------
+    def save(self, epoch: int, path: str) -> None:
+        """Per-component checkpoint in the reference's format
+        (agent_dg.py:1466-1487): {component: {"epoch", "state_dict",
+        "optimizer"}} under the r2r_src parameter names, plus the
+        schedule's iteration."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        opts = self.optimizer.optimizers
+        blob = {name: {"epoch": epoch, "state_dict": module.state_dict(),
+                       "optimizer": opts[name if name in COMPONENTS
+                                         else "other"].state_dict(),
+                       "iteration": self.optimizer.iteration}
+                for name, module in self.policy.named_children()}
+        torch.save(blob, path)
+
+    def load(self, path: str) -> int:
+        """Mismatch-tolerant load (seq2seq.py:2209, agent_dg.py:1489-1510):
+        each parameter whose name and shape match the checkpoint is
+        restored; the others keep their values, with a NOTICE.  With
+        ``load_optim`` the optimizer states come back too.  Returns the
+        checkpoint's epoch."""
+        blob = torch.load(path, map_location=self.device)
+        saved = {f"{name}.{key}": val for name, entry in blob.items()
+                 for key, val in entry["state_dict"].items()}
+        merged, skipped = {}, []
+        for key, val in self.policy.state_dict().items():
+            cand = saved.get(key)
+            if cand is not None and cand.shape == val.shape:
+                merged[key] = cand
+            else:
+                merged[key] = val
+                skipped.append(key)
+        unused = [key for key in saved if key not in merged]
+        if skipped or unused:
+            print("NOTICE: DIFFERENT KEYS IN THE LISTENER "
+                  f"(kept init for {len(skipped)}: {skipped[:5]}...; "
+                  f"ignored {len(unused)} checkpoint-only keys)", flush=True)
+        self.policy.load_state_dict(merged)
+        if self.cfg.load_optim:
+            try:
+                for name, opt in self.optimizer.optimizers.items():
+                    opt.load_state_dict(blob[name]["optimizer"])
+                    self.optimizer.iteration = blob[name]["iteration"]
+            except (KeyError, ValueError) as e:  # component drift: fresh
+                print(f"NOTICE: optimizer state not restored ({e})",
+                      flush=True)
+        return int(next(iter(blob.values()))["epoch"])

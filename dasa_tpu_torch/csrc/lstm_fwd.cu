@@ -6,8 +6,10 @@
 //   c' = sig(f) c + sig(i) tanh(g);  h' = sig(o) tanh(c')
 //   (h, c) = m_t (h', c') + (1 - m_t) (h, c)        carry in f32
 //   h_seq[t], c_seq[t] = bf16(h), bf16(c)          (post-mask carry)
-// The gate activations the TPU kernel also emits feed only its backward
-// kernel, which is not ported yet, so this kernel does not write them.
+//   acts[t] = bf16(sig(i), sig(f), tanh(g), sig(o))  (optional)
+// The gate activations are the TPU kernel's act_out: the backward kernel
+// (lstm_bwd.cu) consumes them.  A null acts pointer (evaluation) skips
+// them.
 //
 // What bounds it on an H100: the 80 tokens are strictly sequential, and
 // every token needs all of Wh (H x 4H bf16 = 8 MiB at H = 1024), which no
@@ -59,22 +61,6 @@ __host__ __device__ inline Layout lstm_layout(int B, int H, int U, int ks) {
   return l;
 }
 
-// All CTAs of the cooperative grid arrive; the counter is zeroed before
-// launch and grows by gridDim.x per token, so barrier t waits for
-// (t + 1) * gridDim.x arrivals.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter,
-                                             unsigned int target) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    atomicAdd(counter, 1u);
-    volatile unsigned int* vc = counter;
-    while (*vc < target) __nanosleep(32);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_fwd_kernel(const bf16* __restrict__ xw,    // (T, B, 4H)
                 const bf16* __restrict__ mask,  // (T, B)
@@ -83,6 +69,7 @@ lstm_fwd_kernel(const bf16* __restrict__ xw,    // (T, B, 4H)
                 const bf16* __restrict__ wt,    // (4H, H) = Wh^T
                 bf16* h_seq,                    // (T, B, H)
                 bf16* c_seq,                    // (T, B, H)
+                bf16* acts,                     // (T, B, 4H) or null
                 unsigned int* barrier, int T, int B, int H, int U, int ks) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout l = lstm_layout(B, H, U, ks);
@@ -179,8 +166,16 @@ lstm_fwd_kernel(const bf16* __restrict__ xw,    // (T, B, 4H)
       const size_t o = ((size_t)t * B + b) * H + u0 + u;
       h_seq[o] = dasa::to_bf(h);
       c_seq[o] = dasa::to_bf(cc);
+      if (acts != nullptr) {
+        bf16* a = acts + ((size_t)t * B + b) * 4 * H + u0 + u;
+        a[0] = dasa::to_bf(ig);
+        a[H] = dasa::to_bf(fg);
+        a[2 * H] = dasa::to_bf(gg);
+        a[3 * H] = dasa::to_bf(og);
+      }
     }
-    if (t + 1 < T) grid_barrier(barrier, (unsigned int)(t + 1) * gridDim.x);
+    if (t + 1 < T)
+      dasa::grid_barrier(barrier, (unsigned int)(t + 1) * gridDim.x);
   }
 }
 
@@ -188,7 +183,8 @@ lstm_fwd_kernel(const bf16* __restrict__ xw,    // (T, B, 4H)
 
 extern "C" int dasa_lstm_fwd(const void* xw, const void* mask, const void* h0,
                              const void* c0, const void* wt, void* h_seq,
-                             void* c_seq, void* barrier, int T, int B, int H,
+                             void* c_seq, void* acts, void* barrier, int T,
+                             int B, int H,
                              int U, int ks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = lstm_layout(B, H, U, ks).total;
@@ -205,9 +201,10 @@ extern "C" int dasa_lstm_fwd(const void* xw, const void* mask, const void* h0,
   const bf16* a_wt = static_cast<const bf16*>(wt);
   bf16* a_h = static_cast<bf16*>(h_seq);
   bf16* a_c = static_cast<bf16*>(c_seq);
+  bf16* a_acts = static_cast<bf16*>(acts);
   unsigned int* a_bar = static_cast<unsigned int*>(barrier);
-  void* args[] = {&a_xw, &a_mask, &a_h0, &a_c0, &a_wt, &a_h, &a_c, &a_bar,
-                  &T,    &B,      &H,    &U,    &ks};
+  void* args[] = {&a_xw, &a_mask, &a_h0, &a_c0, &a_wt, &a_h,
+                  &a_c,  &a_acts, &a_bar, &T, &B, &H, &U, &ks};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_fwd_kernel),
                                   dim3(H / U), dim3(kThreads), args, smem, s);
   if (e != cudaSuccess) return e;

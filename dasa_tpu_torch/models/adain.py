@@ -1,10 +1,12 @@
 """Depth-guided AdaIN feature modulation.
 
 Counterpart of ``dasa_tpu/models/adain.py`` (reference
-agent_dg.py:1513-1547, model.py:1822-1841) for the argmax evaluation
-slice: the DASA ``channel`` module and the parameter-free
-``adaptive_instance_normalization``.  The gumbel-sigmoid gate and the
-COCO / mean / stat variants come with later slices (ROADMAP.md).
+agent_dg.py:1513-1547, model.py:1822-1841): the DASA ``channel`` module
+and the parameter-free ``adaptive_instance_normalization``.  As in the JAX
+package (``dasa_tpu/models/adain.py:76``) the gate's noise input stays
+unused here: the env-drop noise is applied around the module
+(``models/policy.py``).  The gumbel-sigmoid gate and the COCO / mean /
+stat variants come with later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 
 from dasa_tpu_torch.models.layers import Dense, cast_param
-from dasa_tpu_torch.ops.adain import adain_channel_gate
+from dasa_tpu_torch.ops.adain import adain_gate_fn
 
 
 def adaptive_instance_normalization(content, style, eps: float = 1e-5):
@@ -34,7 +36,7 @@ class DGAdaChannel(nn.Module):
 
     With ``use_kernel`` and the published config (``ab_type=a``,
     ``a_type=sigmoid``) the gate runs through
-    ``ops.adain.adain_channel_gate`` (the CUDA kernel on the card), as
+    ``ops.adain.AdainGateFn`` (the CUDA kernel on the card), as
     ``dasa_tpu/models/adain.py:65-76`` routes to its Pallas kernel."""
 
     def __init__(self, channel: int, ab_type: str = "ab",
@@ -44,7 +46,7 @@ class DGAdaChannel(nn.Module):
         if a_type not in (None, "sigmoid"):
             raise NotImplementedError(
                 f"DGAdaChannel a_type={a_type!r}: the gumbel-sigmoid gate "
-                "comes with the training slice (ROADMAP.md)")
+                "comes with the variants slice (ROADMAP.md)")
         self.ab_type = ab_type
         self.a_type = a_type
         self.use_kernel = use_kernel
@@ -61,7 +63,7 @@ class DGAdaChannel(nn.Module):
         d_t = d_t.to(dt)
         if self.use_kernel and self.ab_type == "a" \
                 and self.a_type == "sigmoid":
-            return adain_channel_gate(
+            return adain_gate_fn(
                 f_t, d_t, cast_param(self.a_fc.weight, dt).t(),
                 cast_param(self.a_fc.bias, dt))
         a = torch.ones((), dtype=dt, device=f_t.device)

@@ -6,7 +6,10 @@ ONE shared cross-attention used in both directions, the vision encoder,
 and ``DicModel`` split into ``text_forward`` (cached once per episode) and
 ``cross_forward`` (every step).  Parameter names follow the reference's
 torch ``state_dict``.  The additive attention mask is -10000, GELU is
-exact, and LayerNorm eps is 1e-12, as in the reference.
+exact, and LayerNorm eps is 1e-12, as in the reference.  Hidden and
+attention-probability dropout sit where the JAX modules put them
+(``dasa_tpu/models/bert.py:89,142,160,214,294``); every ``forward`` takes
+the dropout generator ``gen`` (None = no dropout).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from dasa_tpu_torch.models.layers import Dense, cast_param
+from dasa_tpu_torch.models.layers import Dense, cast_param, dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,14 +91,15 @@ class BertEmbeddings(nn.Module):
             nn.init.normal_(emb.weight, std=1.0 / math.sqrt(cfg.hidden_size))
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                    compute_dtype)
+        self.rate = cfg.hidden_dropout_prob
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, gen=None):
         dt = self.compute_dtype
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
         x = (self.word_embeddings(input_ids).to(dt)
              + self.position_embeddings(pos)[None].to(dt)
              + self.token_type_embeddings.weight[0].to(dt))
-        return self.LayerNorm(x)
+        return dropout(self.LayerNorm(x), self.rate, gen)
 
 
 class BertAttentionCore(nn.Module):
@@ -110,8 +114,9 @@ class BertAttentionCore(nn.Module):
         self.query = Dense(hid, hid, compute_dtype=compute_dtype)
         self.key = Dense(hid, hid, compute_dtype=compute_dtype)
         self.value = Dense(hid, hid, compute_dtype=compute_dtype)
+        self.rate = cfg.attention_probs_dropout_prob
 
-    def forward(self, query_input, kv_input, att_bias):
+    def forward(self, query_input, kv_input, att_bias, gen=None):
         def split(x):
             b, l, w = x.shape
             return x.reshape(b, l, self.n_head, w // self.n_head).transpose(
@@ -123,14 +128,14 @@ class BertAttentionCore(nn.Module):
         scores = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
         if att_bias is not None:
             scores = scores + att_bias
-        probs = torch.softmax(scores, dim=-1)
+        probs = dropout(torch.softmax(scores, dim=-1), self.rate, gen)
         ctx = probs @ v
         b, h, l, d = ctx.shape
         return ctx.transpose(1, 2).reshape(b, l, h * d)
 
 
 class BertSelfOutput(nn.Module):
-    """Dense + residual LayerNorm (vilmodel.py:253-266)."""
+    """Dense + dropout + residual LayerNorm (vilmodel.py:253-266)."""
 
     def __init__(self, cfg: BertConfig, compute_dtype=torch.float32):
         super().__init__()
@@ -139,10 +144,11 @@ class BertSelfOutput(nn.Module):
                            compute_dtype=compute_dtype)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                    compute_dtype)
+        self.rate = cfg.hidden_dropout_prob
 
-    def forward(self, hidden, residual):
-        return self.LayerNorm(self.dense(hidden)
-                              + residual.to(self.compute_dtype))
+    def forward(self, hidden, residual, gen=None):
+        hidden = dropout(self.dense(hidden), self.rate, gen)
+        return self.LayerNorm(hidden + residual.to(self.compute_dtype))
 
 
 class BertAttention(nn.Module):
@@ -153,8 +159,8 @@ class BertAttention(nn.Module):
         self.self = BertAttentionCore(cfg, compute_dtype)
         self.output = BertSelfOutput(cfg, compute_dtype)
 
-    def forward(self, x, att_bias):
-        return self.output(self.self(x, x, att_bias), x)
+    def forward(self, x, att_bias, gen=None):
+        return self.output(self.self(x, x, att_bias, gen), x, gen)
 
 
 class BertXAttention(nn.Module):
@@ -165,8 +171,8 @@ class BertXAttention(nn.Module):
         self.att = BertAttentionCore(cfg, compute_dtype)
         self.output = BertSelfOutput(cfg, compute_dtype)
 
-    def forward(self, x, ctx, ctx_att_bias):
-        return self.output(self.att(x, ctx, ctx_att_bias), x)
+    def forward(self, x, ctx, ctx_att_bias, gen=None):
+        return self.output(self.att(x, ctx, ctx_att_bias, gen), x, gen)
 
 
 class BertIntermediate(nn.Module):
@@ -186,9 +192,11 @@ class BertOutput(nn.Module):
                            compute_dtype=compute_dtype)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                    compute_dtype)
+        self.rate = cfg.hidden_dropout_prob
 
-    def forward(self, hidden, residual):
-        return self.LayerNorm(self.dense(hidden) + residual)
+    def forward(self, hidden, residual, gen=None):
+        hidden = dropout(self.dense(hidden), self.rate, gen)
+        return self.LayerNorm(hidden + residual)
 
 
 class BertLayer(nn.Module):
@@ -200,9 +208,9 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg, compute_dtype)
         self.output = BertOutput(cfg, compute_dtype)
 
-    def forward(self, x, att_bias):
-        attn_out = self.attention(x, att_bias)
-        return self.output(self.intermediate(attn_out), attn_out)
+    def forward(self, x, att_bias, gen=None):
+        attn_out = self.attention(x, att_bias, gen)
+        return self.output(self.intermediate(attn_out), attn_out, gen)
 
 
 class BertPooler(nn.Module):
@@ -232,18 +240,19 @@ class LXRTXLayer(nn.Module):
         self.lang_output = BertOutput(cfg, compute_dtype)
         self.visn_output = BertOutput(cfg, compute_dtype)
 
-    def forward(self, lang, lang_bias, visn, visn_bias):
-        lang_x = self.visual_attention(lang, visn, visn_bias)
-        visn_x = self.visual_attention(visn, lang, lang_bias)
-        lang_s = self.lang_self_att(lang_x, lang_bias)
-        visn_s = self.visn_self_att(visn_x, visn_bias)
-        lang_o = self.lang_output(self.lang_inter(lang_s), lang_s)
-        visn_o = self.visn_output(self.visn_inter(visn_s), visn_s)
+    def forward(self, lang, lang_bias, visn, visn_bias, gen=None):
+        lang_x = self.visual_attention(lang, visn, visn_bias, gen)
+        visn_x = self.visual_attention(visn, lang, lang_bias, gen)
+        lang_s = self.lang_self_att(lang_x, lang_bias, gen)
+        visn_s = self.visn_self_att(visn_x, visn_bias, gen)
+        lang_o = self.lang_output(self.lang_inter(lang_s), lang_s, gen)
+        visn_o = self.visn_output(self.visn_inter(visn_s), visn_s, gen)
         return lang_o, visn_o
 
 
 class VisionEncoder(nn.Module):
-    """Linear + LN on panorama features (vilmodel.py:1067-1095)."""
+    """Linear + LN + dropout on panorama features
+    (vilmodel.py:1067-1095)."""
 
     def __init__(self, cfg: BertConfig, compute_dtype=torch.float32):
         super().__init__()
@@ -251,9 +260,11 @@ class VisionEncoder(nn.Module):
                              compute_dtype=compute_dtype)
         self.visn_layer_norm = LayerNorm(cfg.hidden_size, 1e-12,
                                          compute_dtype)
+        self.rate = cfg.hidden_dropout_prob
 
-    def forward(self, feats):
-        return self.visn_layer_norm(self.visn_fc(feats))
+    def forward(self, feats, gen=None):
+        return dropout(self.visn_layer_norm(self.visn_fc(feats)), self.rate,
+                       gen)
 
 
 class DicModel(nn.Module):
@@ -276,29 +287,33 @@ class DicModel(nn.Module):
         self.vision_encoder = VisionEncoder(cfg, compute_dtype)
         self.pooler = BertPooler(cfg, compute_dtype)
 
-    def text_forward(self, input_ids, att_mask):
+    def text_forward(self, input_ids, att_mask, gen=None):
         """Embeddings + la_layers text-only self-attention.  att_mask is
-        (B, L) with 1 = attend."""
+        (B, L) with 1 = attend.  Frozen (``update_lang_bert`` off), the
+        stack records no graph: its output is detached, as the reference
+        detaches it."""
         bias = extended_attention_mask(att_mask, self.compute_dtype)
-        x = self.embeddings(input_ids)
-        for layer in self.lalayer:
-            x = layer(x, bias)
-        if not self.config.update_lang_bert:
-            x = x.detach()
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and self.config.update_lang_bert):
+            x = self.embeddings(input_ids, gen)
+            for layer in self.lalayer:
+                x = layer(x, bias, gen)
         return x
 
     def cross_forward(self, text_embeds, att_mask,
-                      img_feats: Optional[torch.Tensor]):
-        """Vision encoding + vl_layers cross-modal attention + pooling."""
+                      img_feats: Optional[torch.Tensor], gen=None):
+        """Vision encoding + vl_layers cross-modal attention + pooling.
+        Frozen (``update_add_layer`` off), the vision and cross layers
+        record no graph, as the reference detaches their outputs."""
         lang_bias = extended_attention_mask(att_mask, self.compute_dtype)
         lang = text_embeds.to(self.compute_dtype)
         visn = None
         if img_feats is not None:
-            visn = self.vision_encoder(img_feats)
-            for layer in self.vlayer:
-                visn = layer(visn, None)  # all 36 views are valid
-            for layer in self.addlayer:
-                lang, visn = layer(lang, lang_bias, visn, None)
-            if not self.config.update_add_layer:
-                lang, visn = lang.detach(), visn.detach()
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and self.config.update_add_layer):
+                visn = self.vision_encoder(img_feats, gen)
+                for layer in self.vlayer:
+                    visn = layer(visn, None, gen)  # all 36 views are valid
+                for layer in self.addlayer:
+                    lang, visn = layer(lang, lang_bias, visn, None, gen)
         return lang, self.pooler(lang), visn

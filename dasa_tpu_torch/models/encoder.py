@@ -4,9 +4,11 @@ Counterpart of ``DicEncoder`` in ``dasa_tpu/models/encoder.py``
 (reference r2r_src/r2rmodel.py:2199-2365): the DicModel cross-modal BERT,
 masked input reversal, the top bidirectional LSTM, and the projections to
 decoder dims.  ``text_forward`` runs once per episode; the cross layers
-and the top BiLSTM run every step.  The other encoders of the JAX module
-(``EncoderLSTM``, ``BertTextEncoderLSTM``, ``MultiDicEncoder``) come with
-the variants slice (ROADMAP.md).
+and the top BiLSTM run every step, followed by the ``d_dropout_ratio``
+dropout on the instruction ctx (``dasa_tpu/models/encoder.py:226,276``).
+The other encoders of the JAX module (``EncoderLSTM``,
+``BertTextEncoderLSTM``, ``MultiDicEncoder``) come with the variants slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 
 from dasa_tpu_torch.models.bert import BertConfig, DicModel
-from dasa_tpu_torch.models.layers import BiLSTM, Dense
+from dasa_tpu_torch.models.layers import BiLSTM, Dense, dropout
 
 
 def reverse_valid_tokens(embeds, valid_mask, seq_len):
@@ -35,7 +37,8 @@ class DicEncoder(nn.Module):
     def __init__(self, bert_config: BertConfig, hidden_size: int,
                  dec_hidden_size: int, bidirectional: bool = True,
                  reverse_input: bool = True, top_lstm: bool = True,
-                 ctx_v: bool = False, compute_dtype=torch.float32):
+                 ctx_v: bool = False, compute_dtype=torch.float32,
+                 dropout_ratio: float = 0.0):
         super().__init__()
         if not bidirectional or ctx_v:
             raise NotImplementedError(
@@ -45,6 +48,7 @@ class DicEncoder(nn.Module):
         self.dec_hidden_size = dec_hidden_size
         self.reverse_input = reverse_input
         self.top_lstm = top_lstm
+        self.dropout_ratio = dropout_ratio
         self.bert = DicModel(bert_config, compute_dtype)
         hid = bert_config.hidden_size
         kw = dict(compute_dtype=compute_dtype)
@@ -61,18 +65,19 @@ class DicEncoder(nn.Module):
             self.encoder2decoder_ht = Dense(hid, dec_hidden_size, **kw)
             self.encoder2decoder_ct = Dense(hid, dec_hidden_size, **kw)
 
-    def text_forward(self, inputs, valid_mask):
+    def text_forward(self, inputs, valid_mask, gen=None):
         """Cacheable text-only stack (exact to re-running per step when
         update_lang_bert is False)."""
-        return self.bert.text_forward(inputs, valid_mask.int())
+        return self.bert.text_forward(inputs, valid_mask.int(), gen)
 
     def forward(self, text_embeds, valid_mask, seq_len, f_t_all=None,
-                lstm_kernel: bool = False):
+                lstm_kernel: bool = False, gen=None):
         """text_embeds: output of text_forward (B, L, H_bert).
         Returns (ctx, decoder_init, c_t, ctx_v, visn); ``lstm_kernel``
-        routes the top LSTM through ``ops.lstm.lstm_scan``."""
+        routes the top LSTM through ``ops.lstm.LstmScanFn``; ``gen`` draws
+        the dropout masks (None = no dropout)."""
         embeds, pooled, visn = self.bert.cross_forward(
-            text_embeds, valid_mask.int(), f_t_all)
+            text_embeds, valid_mask.int(), f_t_all, gen)
         if self.reverse_input:
             embeds = reverse_valid_tokens(embeds, valid_mask, seq_len)
         if not self.top_lstm:
@@ -85,4 +90,5 @@ class DicEncoder(nn.Module):
             decoder_init = torch.tanh(self.encoder_lstm2decoder_ht(h_t))
             if 2 * self.hidden_size != self.dec_hidden_size:
                 c_t = self.encoder_lstm2decoder_ct(c_t)
+        ctx = dropout(ctx, self.dropout_ratio, gen)
         return ctx, decoder_init, c_t, None, visn

@@ -4,31 +4,68 @@ PyTorch counterpart of ``dasa_tpu/models/layers.py`` (reference
 r2r_src/model.py:16-353).  Parameters are f32 and named as the
 reference's torch ``state_dict``; each layer computes in its
 ``compute_dtype`` (flax's ``Dense(dtype=...)`` rule: inputs, weights and
-biases are cast first).  Only the layers the argmax evaluation slice runs
-are here; ``LSTM`` (unidirectional), ``MLP`` and ``scaled_dot_attention``
-come with later slices (ROADMAP.md).
+biases are cast first).  Dropout takes an explicit ``torch.Generator``: no
+generator means no dropout (flax's ``deterministic=True``).  Only the
+layers the listener slices run are here; ``LSTM`` (unidirectional),
+``MLP`` and ``scaled_dot_attention`` come with later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from dasa_tpu_torch.ops.lstm import lstm_scan
-from dasa_tpu_torch.ops.shift_attention import shift_attend
+from dasa_tpu_torch.ops.lstm import lstm_scan_fn
+from dasa_tpu_torch.ops.shift_attention import shift_attend_fn
 
 NEG_INF = -1e9  # softmax mask value (finite to keep grads NaN-free)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout drawing its mask from ``gen`` (flax ``nn.Dropout``:
+    keep with probability 1 - rate, scale kept values by 1 / (1 - rate)).
+    ``gen`` None or ``rate`` 0 is the identity."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+@contextlib.contextmanager
+def cast_params_once(module: nn.Module, dtype: torch.dtype):
+    """Within the block, every use of a trainable f32 parameter of
+    ``module`` reads ONE ``dtype`` copy made on entry (the JAX agent's
+    ``_cast_params_once``, ``dasa_tpu/agents/seq2seq.py:384``): the
+    forward is unchanged, and autograd sums the parameter's gradient over
+    all its uses in ``dtype`` before one cast back to f32, instead of
+    casting every use's gradient.  The copy sits on the parameter for the
+    block's duration."""
+    params = [p for p in module.parameters()
+              if p.requires_grad and p.dtype == torch.float32]
+    for p in params:
+        p._pass_cast = p.to(dtype)
+    try:
+        yield
+    finally:
+        for p in params:
+            del p._pass_cast
+
+
 def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``p`` in ``dtype``.  Outside autograd the cast copy is kept on the
+    """``p`` in ``dtype``.  Inside :func:`cast_params_once` the pass's
+    copy is used.  Outside autograd the cast copy is kept on the
     parameter and reused until the parameter changes (its version, device
     or storage), so inference does not re-cast every weight every step."""
     if p.dtype == dtype:
         return p
+    hit = getattr(p, "_pass_cast", None)
+    if hit is not None and hit.dtype == dtype:
+        return hit
     if torch.is_grad_enabled() and p.requires_grad:
         return p.to(dtype)
     key = (p._version, p.data_ptr(), dtype)
@@ -108,8 +145,8 @@ class BiLSTM(nn.Module):
     model.py:66-68).  Masked tokens pass the carry on, as PackedSequence
     does.
 
-    ``kernel=True`` runs each direction through ``ops.lstm.lstm_scan``
-    (f32 carry; the CUDA kernel on the card); otherwise both directions
+    ``kernel=True`` runs each direction through ``ops.lstm.LstmScanFn``
+    (f32 carry; the CUDA kernels on the card); otherwise both directions
     run as one plain token loop over stacked (2, B) states whose carry
     stays in the compute dtype (``dasa_tpu/models/layers.py:195-229``)."""
 
@@ -150,7 +187,7 @@ class BiLSTM(nn.Module):
                 wi, wh, b = self._dir(sfx)
                 xw = (xs @ wi.t() + b).transpose(0, 1)         # (T, B, 4H)
                 m = ms.transpose(0, 1).to(dt)                  # (T, B)
-                h_seq, c_seq = lstm_scan(xw, m, zeros, zeros, wh.t())
+                h_seq, c_seq = lstm_scan_fn(xw, m, zeros, zeros, wh.t())
                 return ((h_seq * m[..., None]).transpose(0, 1),
                         h_seq[-1], c_seq[-1])
 
@@ -223,7 +260,7 @@ class ShiftSoftDotAttention(nn.Module):
     circular cross-correlation along each heading ring.
 
     With ``use_kernel`` and no mask the whole layer runs through
-    ``ops.shift_attention.shift_attend`` (the CUDA kernel on the card),
+    ``ops.shift_attention.ShiftAttendFn`` (the CUDA kernel on the card),
     as ``dasa_tpu/models/layers.py:283-304`` routes to its Pallas
     kernel."""
 
@@ -249,7 +286,7 @@ class ShiftSoftDotAttention(nn.Module):
         context = context.to(dt)
         batch = h.shape[0]
         if self.use_kernel and mask is None:
-            weighted, logit = shift_attend(
+            weighted, logit = shift_attend_fn(
                 h, context, cast_param(self.linear_in.weight, dt).t(),
                 cast_param(self.linear_shift.weight, dt).t(),
                 cast_param(self.linear_shift.bias, dt))

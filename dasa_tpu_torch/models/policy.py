@@ -1,18 +1,20 @@
 """Assembled navigation policy.
 
 Counterpart of ``dasa_tpu/models/policy.py`` (reference
-r2r_src/agent_dg.py:102-260) for the argmax evaluation slice: one
-``nn.Module`` owning the Dic encoder, the BAttn decoder, the critic and
-the AdaIN module, exposed as per-step methods.  The kernel switch keeps
-the JAX package's meaning: ``use_pallas="always"`` routes the AdaIN gate
-and the shift attention through their CUDA kernels (the top BiLSTM's
-routing is the agent's ``lstm_kernel`` argument, on under ``auto`` and
-``always``).
+r2r_src/agent_dg.py:102-260): one ``nn.Module`` owning the Dic encoder,
+the BAttn decoder, the critic and the AdaIN module, exposed as per-step
+methods.  The kernel switch keeps the JAX package's meaning:
+``use_pallas="always"`` routes the AdaIN gate and the shift attention
+through their CUDA kernels (the top BiLSTM's routing is the agent's
+``lstm_kernel`` argument, on under ``auto`` and ``always``).
 
-Step dataflow (agent_dg.py:725-936): gather pano + candidates -> AdaIN
-channel modulation -> cross-modal encoder (with the per-episode cached
-text stack) -> decoder step -> candidate logits.  Dropout is off in this
-slice, so the env-drop noise inputs of the JAX methods do not appear.
+Step dataflow (agent_dg.py:725-936): gather pano + candidates -> env-drop
+noise (before or after AdaIN) -> AdaIN channel modulation -> cross-modal
+encoder (with the per-episode cached text stack) -> decoder step ->
+candidate logits.  ``deterministic=False`` turns dropout on; its masks
+come from the caller's ``torch.Generator`` ``gen``.  The JAX methods'
+``is_test`` flag switches only the gumbel-sigmoid AdaIN gate, which is
+not ported (the variants slice), so it does not appear here.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from dasa_tpu_torch.models.bert import BertConfig
 from dasa_tpu_torch.models.decoder import BAttnDecoderLSTM, Critic
 from dasa_tpu_torch.models.encoder import DicEncoder
 
+
 class StepInputs(NamedTuple):
     """Per-step featurized inputs (already gathered on device)."""
 
@@ -46,6 +49,17 @@ class DecoderState(NamedTuple):
     h: torch.Tensor
     c: torch.Tensor
     h1: torch.Tensor
+
+
+def _dropout_gen(deterministic: bool, gen):
+    """The generator the modules draw dropout masks from: none when
+    deterministic; a non-deterministic call must bring one."""
+    if deterministic:
+        return None
+    if gen is None:
+        raise ValueError("deterministic=False needs a torch.Generator for "
+                         "the dropout masks")
+    return gen
 
 
 def decoder_state_width(cfg: Config) -> int:
@@ -90,7 +104,7 @@ class DasaPolicy(nn.Module):
             bert_config_from(cfg), cfg.d_enc_hidden_size, cfg.d_hidden_size,
             bidirectional=cfg.d_bidirectional,
             reverse_input=cfg.d_reverse_input, top_lstm=cfg.d_top_lstm,
-            ctx_v=cfg.ctx_v, **kw)
+            ctx_v=cfg.ctx_v, dropout_ratio=cfg.d_dropout_ratio, **kw)
         num_dir = 2 if cfg.d_bidirectional else 1
         ctx_dim = (cfg.d_enc_hidden_size * num_dir if cfg.d_top_lstm
                    else cfg.bert_hidden_size)
@@ -100,7 +114,8 @@ class DasaPolicy(nn.Module):
             shift_kernel_size=cfg.shift_kernel_size,
             pred_back=cfg.pred_back,
             use_dyrelu=cfg.decoder_type == "dyrelu", pred_pm=cfg.pred_pm,
-            use_kernel=use_kernel, **kw)
+            use_kernel=use_kernel, dropout_ratio=cfg.dropout,
+            featdropout=cfg.featdropout, **kw)
         self.critic = Critic(cfg.d_hidden_size, cfg.critic_dim, cfg.dropout,
                              **kw)
         self.adain = make_adain(cfg.adain_type, cfg.feature_size,
@@ -108,18 +123,21 @@ class DasaPolicy(nn.Module):
                                 use_kernel=use_kernel)
 
     # ---- episode-level ----
-    def encode_text(self, instr, valid_mask, seq_len) -> Dict:
+    def encode_text(self, instr, valid_mask, seq_len, *,
+                    deterministic: bool = True, gen=None) -> Dict:
         """Per-episode cacheable computation: the text-only BERT stack."""
-        return {"text_embeds": self.encoder.text_forward(instr, valid_mask)}
+        gen = _dropout_gen(deterministic, gen)
+        return {"text_embeds": self.encoder.text_forward(instr, valid_mask,
+                                                         gen)}
 
     # ---- per-step pieces ----
     def encode_step(self, cached: Dict, valid_mask, seq_len, f_t,
-                    lstm_kernel: bool = False):
+                    lstm_kernel: bool = False, gen=None):
         """Per-step encoding.  Returns (ctx, h0, c0, ctx_v, v_emb)."""
         return self.encoder(
             cached["text_embeds"], valid_mask, seq_len,
             f_t_all=f_t if self.cfg.include_vision else None,
-            lstm_kernel=lstm_kernel)
+            lstm_kernel=lstm_kernel, gen=gen)
 
     def apply_adain(self, inputs: StepInputs) -> StepInputs:
         """Depth-guided modulation of the pano/candidate visual channels;
@@ -153,20 +171,55 @@ class DasaPolicy(nn.Module):
             return inputs._replace(f_t=df_t, cand_feat=cand)
         return inputs._replace(d_t=df_t, cand_feat=cand)
 
+    def _apply_env_noise(self, inputs: StepInputs, env_noise) -> StepInputs:
+        """Multiply the visual channels by the shared per-rollout noise
+        vector (consistent env-drop, agent_dg.py:731-736, 780-785;
+        ``dasa_tpu/models/policy.py:373``)."""
+        a = self.cfg.angle_feat_size
+
+        def noised(x):
+            return torch.cat([x[..., :-a] * env_noise, x[..., -a:]], dim=-1)
+
+        f_t = noised(inputs.f_t)
+        cand = noised(inputs.cand_feat)
+        if self.cfg.depth_drop:
+            d_t = noised(inputs.d_t)
+            cand_d = noised(inputs.cand_dfeat)
+        else:
+            d_t, cand_d = inputs.d_t, inputs.cand_dfeat
+        return inputs._replace(f_t=f_t, d_t=d_t, cand_feat=cand,
+                               cand_dfeat=cand_d)
+
     def percept_step(self, cached: Dict, valid_mask, seq_len,
-                     inputs: StepInputs, lstm_kernel: bool = False) -> Dict:
-        """The decoder-state-independent part of one step: AdaIN ->
-        cross-modal encoder (vl_rollout, agent_dg.py:725-797)."""
+                     inputs: StepInputs, lstm_kernel: bool = False, *,
+                     deterministic: bool = True, env_noise=None,
+                     gen=None) -> Dict:
+        """The decoder-state-independent part of one step: env-drop ->
+        AdaIN -> cross-modal encoder (vl_rollout, agent_dg.py:725-797).
+        ``env_noise`` (F,) is the shared feature-drop mask, applied before
+        or after AdaIN as ``env_drop_stage`` says."""
+        cfg = self.cfg
+        gen = _dropout_gen(deterministic, gen)
+        if env_noise is not None and cfg.env_drop_stage == "before_adain":
+            inputs = self._apply_env_noise(inputs, env_noise)
         inputs = self.apply_adain(inputs)
+        if env_noise is not None and cfg.env_drop_stage == "after_adain":
+            inputs = self._apply_env_noise(inputs, env_noise)
         ctx, h0, c0, _ctx_v, _v_emb = self.encode_step(
-            cached, valid_mask, seq_len, inputs.f_t, lstm_kernel=lstm_kernel)
+            cached, valid_mask, seq_len, inputs.f_t, lstm_kernel=lstm_kernel,
+            gen=gen)
         return {"ctx": ctx, "h0": h0, "c0": c0, "inputs": inputs}
 
     def decode_from_percept(self, percept: Dict, valid_mask,
-                            state: DecoderState, is_first):
+                            state: DecoderState, is_first, *,
+                            deterministic: bool = True,
+                            already_dropfeat: bool = False, gen=None):
         """The decoder-state-dependent tail of one step: state select at
         t=0, decoder LSTM step, candidate logits, critic (vl_rollout,
-        agent_dg.py:798-830)."""
+        agent_dg.py:798-830).  ``already_dropfeat``: the env-drop noise
+        has dropped the visual features, so the decoder skips its own
+        featdropout."""
+        gen = _dropout_gen(deterministic, gen)
         h0, c0 = percept["h0"], percept["c0"]
         first = is_first.to(h0.dtype)[:, None]
         state = DecoderState(
@@ -176,19 +229,25 @@ class DasaPolicy(nn.Module):
         inputs = percept["inputs"]
         h, c, logit, h1, aux = self.decoder(
             inputs.action_feat, inputs.d_t, inputs.cand_feat, state.h1,
-            state.c, percept["ctx"], ~valid_mask)
+            state.c, percept["ctx"], ~valid_mask, gen=gen,
+            already_dropfeat=already_dropfeat)
         state = DecoderState(h, c, h1)
-        return state, logit, self.critic(state.h), aux
+        return state, logit, self.critic(state.h, gen), aux
 
     def policy_step(self, cached: Dict, valid_mask, seq_len,
                     inputs: StepInputs, state: DecoderState, is_first,
-                    lstm_kernel: bool = False):
+                    lstm_kernel: bool = False, *,
+                    deterministic: bool = True, env_noise=None, gen=None):
         """The complete per-step forward: percept_step +
-        decode_from_percept."""
+        decode_from_percept under one generator."""
         percept = self.percept_step(cached, valid_mask, seq_len, inputs,
-                                    lstm_kernel=lstm_kernel)
-        return self.decode_from_percept(percept, valid_mask, state,
-                                        is_first)
+                                    lstm_kernel=lstm_kernel,
+                                    deterministic=deterministic,
+                                    env_noise=env_noise, gen=gen)
+        return self.decode_from_percept(
+            percept, valid_mask, state, is_first,
+            deterministic=deterministic,
+            already_dropfeat=env_noise is not None, gen=gen)
 
     def forward(self, instr, valid_mask, seq_len, inputs: StepInputs,
                 lstm_kernel: bool = False):

@@ -1,14 +1,15 @@
 from dasa_tpu_torch.ops.adain import adain_channel_gate  # noqa: F401
-from dasa_tpu_torch.ops.lstm import lstm_scan  # noqa: F401
+from dasa_tpu_torch.ops.lstm import lstm_scan, lstm_scan_bwd  # noqa: F401
 from dasa_tpu_torch.ops.shift_attention import shift_attend  # noqa: F401
+
+_WRAPPERS = (lstm_scan, lstm_scan_bwd, adain_channel_gate, shift_attend)
 
 
 def kernel_launches() -> dict:
     """Launch counts of the CUDA kernels' wrappers, by wrapper name."""
-    return {fn.__name__: fn.launches
-            for fn in (lstm_scan, adain_channel_gate, shift_attend)}
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}
 
 
 def reset_kernel_launches() -> None:
-    for fn in (lstm_scan, adain_channel_gate, shift_attend):
+    for fn in _WRAPPERS:
         fn.launches = 0

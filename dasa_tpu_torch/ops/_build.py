@@ -26,6 +26,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+# dynamic shared memory one block may use on sm_90
+MAX_SMEM = 232448
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -33,7 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (pointers, ints, then the stream)
 ENTRY_POINTS = {
-    "dasa_lstm_fwd": [_P] * 8 + [_I] * 5 + [_P],
+    "dasa_lstm_fwd": [_P] * 9 + [_I] * 5 + [_P],
+    "dasa_lstm_bwd": [_P] * 10 + [_I] * 5 + [_P],
     "dasa_adain_gate": [_P] * 6 + [_I] * 3 + [_P],
     "dasa_shift_attend": [_P] * 8 + [_I] * 7 + [_P],
 }
@@ -159,3 +162,15 @@ def require_cuda(name: str, **tensors: torch.Tensor) -> None:
                 "bfloat16 (set use_pallas='never' for other dtypes)")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The raw kernel entry points return tensors without a ``grad_fn``:
+    with grad mode on they refuse inputs that require grad, rather than
+    silently cut the graph.  Differentiable code calls the
+    ``torch.autograd.Function`` of the op."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the raw entry point would "
+            "detach it; call the op's autograd Function instead")

@@ -5,7 +5,11 @@ Port of the TPU kernel ``dasa_tpu/ops/adain.py:_kernel`` (via
 * noise in one pass, the published DASA config (``ab_type=a``,
 ``a_type=sigmoid``).  The kernel (``csrc/adain_gate.cu``) is a tiled
 tensor-core GEMM with the gate fused into its epilogue; its source note
-says what bounds it and how the design answers.  Forward only.
+says what bounds it and how the design answers.
+
+:class:`AdainGateFn` is what the modules call: the kernel forward and the
+JAX package's plain f32 backward (``dasa_tpu/ops/adain.py:_bwd``; the TPU
+package has no backward kernel for this op, so neither has the port).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ def adain_channel_gate(f, d, w, b, noise: Optional[torch.Tensor] = None
     ``csrc/adain_gate.cu`` (bf16 only) or raise.  ``w`` may be a
     transposed view of a contiguous (out, in) tensor (torch's Linear
     weight), which the kernel reads without a copy."""
+    _build.refuse_grad("adain_channel_gate", f, d, w, b, noise)
     if f.device.type == "cpu":
         return adain_channel_gate_ref(f, d, w, b, noise)
     shape = f.shape
@@ -73,3 +78,39 @@ def adain_channel_gate(f, d, w, b, noise: Optional[torch.Tensor] = None
 
 
 adain_channel_gate.launches = 0
+
+
+class AdainGateFn(torch.autograd.Function):
+    """Differentiable :func:`adain_channel_gate`: the kernel forward, and
+    backward in f32 exactly as ``dasa_tpu/ops/adain.py:_bwd``."""
+
+    @staticmethod
+    def forward(ctx, f, d, w, b, noise=None):
+        ctx.save_for_backward(f, d, w, b, noise)
+        return adain_channel_gate(f, d, w, b, noise)
+
+    @staticmethod
+    def backward(ctx, g):
+        f, d, w, b, noise = ctx.saved_tensors
+        c = f.shape[-1]
+        f2 = f.reshape(-1, c).float()
+        d2 = d.reshape(-1, d.shape[-1]).float()
+        g2 = g.reshape(-1, c).float()
+        w32 = w.float()
+        s = torch.sigmoid(d2 @ w32 + b.float())
+        gn = g2 if noise is None else g2 * noise.reshape(-1).float()
+        df = (gn * s).to(f.dtype).reshape(f.shape)
+        dz = gn * f2 * s * (1.0 - s)
+        dd = (dz @ w32.t()).to(d.dtype).reshape(d.shape)
+        dw = (d2.t() @ dz).to(w.dtype)
+        db = dz.sum(0).to(b.dtype)
+        dnoise = (None if noise is None
+                  else (g2 * s * f2).sum(0).to(noise.dtype).reshape(
+                      noise.shape))
+        return df, dd, dw, db, dnoise
+
+
+def adain_gate_fn(f, d, w, b, noise: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """``AdainGateFn.apply``: the AdaIN gate with gradients."""
+    return AdainGateFn.apply(f, d, w, b, noise)

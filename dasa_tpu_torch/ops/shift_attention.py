@@ -7,7 +7,12 @@ projection, a softmax, the per-sample circular smoothing along the
 heading ring of each of the 3 elevation rows, and the smoothed weighted
 sum of the context.  The kernel (``csrc/shift_attend.cu``) runs as two
 launches inside one call; its source note says what bounds it and how the
-design answers.  Forward only.
+design answers.
+
+:class:`ShiftAttendFn` is what the modules call: the kernel forward and,
+backward, autograd through the f32 plain function, exactly as
+``dasa_tpu/ops/shift_attention.py:_bwd`` (the TPU package has no backward
+kernel for this op, so neither has the port).
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ def shift_attend(h, ctx, w_in, w_shift, b_shift
     of ``csrc/shift_attend.cu`` (bf16 only) or raise.  ``w_in`` and
     ``w_shift`` may be transposed views of contiguous (out, in) tensors
     (torch's Linear weights), which the kernels read without a copy."""
+    _build.refuse_grad("shift_attend", h, ctx, w_in, w_shift, b_shift)
     if ctx.device.type == "cpu":
         return shift_attend_ref(h, ctx, w_in, w_shift, b_shift)
     b, t, c = ctx.shape
@@ -95,3 +101,39 @@ def shift_attend(h, ctx, w_in, w_shift, b_shift
 
 
 shift_attend.launches = 0
+
+
+def _shift_attend_f32(h, ctx, w_in, w_shift, b_shift):
+    """``shift_attention.py:_bwd``'s forward: every product in f32, the
+    weighted context rounded to ctx's dtype at the end."""
+    hf = h.float()
+    target = hf @ w_in.float()
+    logit = torch.einsum("btc,bc->bt", ctx.float(), target)
+    attn = torch.softmax(logit, dim=-1)
+    kern = torch.softmax(hf @ w_shift.float() + b_shift.float(), dim=-1)
+    weighted = torch.einsum("bt,btc->bc", shift_smooth(attn, kern),
+                            ctx.float())
+    return weighted.to(ctx.dtype), logit
+
+
+class ShiftAttendFn(torch.autograd.Function):
+    """Differentiable :func:`shift_attend`: the kernels forward; backward
+    through the f32 plain function (``shift_attention.py:_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, h, context, w_in, w_shift, b_shift):
+        ctx.save_for_backward(h, context, w_in, w_shift, b_shift)
+        return shift_attend(h, context, w_in, w_shift, b_shift)
+
+    @staticmethod
+    def backward(ctx, g_out, g_logit):
+        inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = _shift_attend_f32(*inputs)
+        return torch.autograd.grad(outs, inputs, (g_out, g_logit))
+
+
+def shift_attend_fn(h, ctx, w_in, w_shift, b_shift
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ShiftAttendFn.apply``: the shift attention with gradients."""
+    return ShiftAttendFn.apply(h, ctx, w_in, w_shift, b_shift)

@@ -1,16 +1,21 @@
-"""World setup and the ``validlistener`` entry point.
+"""World setup and the ``listener`` / ``auglistener`` / ``validlistener``
+entry points.
 
-Counterpart of ``World``, ``make_agent`` and ``valid`` in
-``dasa_tpu/train/trainer.py`` (reference r2r_src/train.py:396-421).  The
-training loops, beam validation, the speaker modes, NDH worlds,
-checkpoint loading and the data-parallel mesh come with later slices
+Counterpart of ``World``, ``make_agent``, ``run_validation``, ``train``
+and ``valid`` in ``dasa_tpu/train/trainer.py`` (reference
+r2r_src/train.py:157-421).  Beam validation, the speaker modes and
+selfTrain, NDH worlds and the data-parallel mesh come with later slices
 (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import os
+import time
+from collections import defaultdict
 from typing import Dict, Optional
+
+import numpy as np
 
 from dasa_tpu_torch.agents.seq2seq import Seq2SeqAgent
 from dasa_tpu_torch.config import Config
@@ -18,13 +23,14 @@ from dasa_tpu_torch.data.datasets import expand_instructions, load_datasets
 from dasa_tpu_torch.data.features import load_feature_db
 from dasa_tpu_torch.env import R2REnv
 from dasa_tpu_torch.train.evaluation import Evaluation
+from dasa_tpu_torch.train.metrics import MetricsWriter
 from dasa_tpu_torch.utils import (
     Tokenizer,
     build_vocab,
     read_vocab,
     write_vocab,
 )
-from dasa_tpu_torch.utils.misc import set_seed
+from dasa_tpu_torch.utils.misc import GracefulKiller, Timer, set_seed
 
 
 class World:
@@ -91,18 +97,140 @@ def make_agent(cfg: Config, world: World, env_name: str = "train",
                         device=device)
 
 
+def run_validation(agent: Seq2SeqAgent, world: World, writer, it: int,
+                   best: dict, snap_dir: str,
+                   val_splits=("val_seen", "val_unseen")) -> str:
+    """Argmax-evaluate the val splits, log their metrics, and checkpoint
+    the best SR per split, the best val_unseen SPL and the best SR sum
+    (train.py:306-365, ``dasa_tpu/train/trainer.py:142``)."""
+    loss_str = ""
+    current_sr_sum = 0.0
+    csv_row = {"iteration": it}
+    for env_name in val_splits:
+        agent.env = world.envs[env_name]
+        results = agent.test(feedback="argmax")
+        summary, _ = world.evaluators[env_name].score(results)
+        loss_str += ", %s " % env_name
+        for metric, val in summary.items():
+            loss_str += ", %s: %.3f" % (metric, val)
+            csv_row[f"{env_name} {metric}"] = round(float(val), 6)
+            writer.add_scalar(f"metric/{env_name}_{metric}", val, it)
+        sr = summary["success_rate"]
+        current_sr_sum += sr
+        if sr > best.setdefault(env_name, 0.0):
+            best[env_name] = sr
+            agent.save(it, os.path.join(snap_dir, f"best_{env_name}"))
+        if env_name == "val_unseen" and \
+                summary["spl"] > best.setdefault("spl_unseen", 0.0):
+            best["spl_unseen"] = summary["spl"]
+            agent.save(it, os.path.join(snap_dir, "best_spl_unseen"))
+    if current_sr_sum > best.setdefault("sr_sum", 0.0):
+        best["sr_sum"] = current_sr_sum
+        agent.save(it, os.path.join(snap_dir, "best_sr_sum"))
+    writer.write_csv_row(csv_row)
+    return loss_str
+
+
+def train(cfg: Config, world: Optional[World] = None, device=None,
+          agent: Optional[Seq2SeqAgent] = None) -> Seq2SeqAgent:
+    """listener / auglistener training (train.py:157-393,
+    ``dasa_tpu/train/trainer.py:175``): ``cfg.iters`` optimizer
+    iterations in intervals of ``log_every``, validation every
+    ``val_every``, checkpoints every ``save_every`` and at the end.  With
+    an aug env each iteration accumulates the org env's pass pair at
+    ``ml_weight_org`` and the aug env's at ``ml_weight_aug``.  ``agent``
+    reuses an agent built by :func:`make_agent`."""
+    if cfg.self_train:
+        raise NotImplementedError(
+            "selfTrain (speaker back-translation) comes with the speaker "
+            "slice (ROADMAP.md)")
+    world = world or World(cfg)
+    agent = agent or make_agent(cfg, world, device=device)
+    train_env = world.envs["train"]
+    aug_env = world.envs.get("aug")
+    snap_dir = os.path.join(cfg.snap_dir, cfg.name, "state_dict")
+    os.makedirs(snap_dir, exist_ok=True)
+    writer = MetricsWriter(os.path.join(cfg.log_dir, cfg.name))
+
+    start_iter = 0
+    if cfg.load is not None:
+        start_iter = agent.load(cfg.load)
+        print(f"Loaded listener from {cfg.load} at iter {start_iter}")
+
+    best: dict = {}
+    log_every = 40 if cfg.fast_train else cfg.log_every
+    start = time.time()
+    killer = GracefulKiller()
+    timer = Timer()
+    try:
+        for idx in range(start_iter, start_iter + cfg.iters, log_every):
+            agent.logs = defaultdict(list)
+            interval = min(log_every, start_iter + cfg.iters - idx)
+            it = idx + interval
+
+            timer.tic("train")
+            if aug_env is None:
+                agent.env = train_env
+                agent.train(interval, feedback=cfg.feedback)
+            else:
+                for _ in range(interval // 2):
+                    agent.zero_grad()
+                    agent.env = train_env
+                    agent.accumulate_gradient(cfg.feedback,
+                                              ml_weight=cfg.ml_weight_org)
+                    agent.env = aug_env
+                    agent.accumulate_gradient(cfg.feedback,
+                                              ml_weight=cfg.ml_weight_aug)
+                    agent.optim_step()
+            timer.toc("train")
+            timer.step()
+
+            logs = {key: [float(v) for v in vals]
+                    for key, vals in agent.logs.items()}
+            total = max(sum(logs.get("total", [])), 1)
+            for tag in ("loss", "ml_loss", "forth_loss", "rl_loss"):
+                if logs.get(tag):
+                    writer.add_scalar(f"loss/{tag}", float(np.mean(logs[tag])),
+                                      it)
+            if logs.get("critic_loss"):
+                writer.add_scalar("loss/critic",
+                                  sum(logs["critic_loss"]) / total, it)
+            if logs.get("entropy"):
+                writer.add_scalar("policy/entropy",
+                                  sum(logs["entropy"]) / total, it)
+
+            if it % cfg.val_every == 0:
+                loss_str = run_validation(agent, world, writer, it, best,
+                                          snap_dir)
+                print("PROGRESS: %d/%d (%.0fs)%s" % (
+                    it, start_iter + cfg.iters, time.time() - start,
+                    loss_str), flush=True)
+            if it % cfg.save_every == 0:
+                agent.save(it, os.path.join(snap_dir, f"LAST_iter{it}"))
+            writer.flush()
+            if killer.kill_now:  # SIGINT/SIGTERM: checkpoint and stop
+                agent.save(it, os.path.join(snap_dir, f"LAST_iter{it}"))
+                print(f"PROGRESS: interrupted at {it}, checkpoint saved",
+                      flush=True)
+                break
+        agent.save(start_iter + cfg.iters, os.path.join(
+            snap_dir, f"LAST_iter{start_iter + cfg.iters}"))
+    finally:
+        killer.restore()
+        writer.close()
+    return agent
+
+
 def valid(cfg: Config, world: Optional[World] = None, device=None,
           agent: Optional[Seq2SeqAgent] = None) -> Dict[str, dict]:
     """validlistener (train.py:396-421): argmax-evaluate every split but
-    train/aug and score it.  ``agent`` reuses an agent built by
-    :func:`make_agent` (with weights loaded by the caller)."""
-    if cfg.load is not None:
-        raise NotImplementedError(
-            "loading listener checkpoints comes with the training slice "
-            "(ROADMAP.md); carry JAX weights with "
-            "Seq2SeqAgent.load_jax_params")
+    train/aug and score it, after loading ``cfg.load`` when set.
+    ``agent`` reuses an agent built by :func:`make_agent`."""
     world = world or World(cfg)
     agent = agent or make_agent(cfg, world, device=device)
+    if cfg.load is not None:
+        it = agent.load(cfg.load)
+        print(f"Loaded listener at iter {it} from {cfg.load}")
     out = {}
     for env_name, env in world.envs.items():
         if env_name in ("aug", "train"):

@@ -57,14 +57,21 @@ class Timer:
 
 
 class GracefulKiller:
-    """SIGINT/SIGTERM latch (utils.py:416-423)."""
+    """SIGINT/SIGTERM latch (utils.py:416-423); ``restore`` puts the
+    previous handlers back."""
 
     def __init__(self):
         import signal
 
         self.kill_now = False
-        signal.signal(signal.SIGINT, self._exit)
-        signal.signal(signal.SIGTERM, self._exit)
+        self._previous = {sig: signal.signal(sig, self._exit)
+                          for sig in (signal.SIGINT, signal.SIGTERM)}
 
     def _exit(self, signum, frame):
         self.kill_now = True
+
+    def restore(self):
+        import signal
+
+        for sig, handler in self._previous.items():
+            signal.signal(sig, handler)

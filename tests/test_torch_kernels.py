@@ -17,7 +17,13 @@ from dasa_tpu_torch.ops.adain import (
     adain_channel_gate,
     adain_channel_gate_ref,
 )
-from dasa_tpu_torch.ops.lstm import lstm_scan, lstm_scan_ref
+from dasa_tpu_torch.ops.lstm import (
+    LstmScanFn,
+    lstm_scan,
+    lstm_scan_bwd,
+    lstm_scan_bwd_ref,
+    lstm_scan_ref,
+)
 from dasa_tpu_torch.ops.shift_attention import (
     shift_attend,
     shift_attend_ref,
@@ -53,6 +59,49 @@ def test_lstm_kernel_matches_plain_on_card(cuda, b, h):
     for g, r in zip(got, ref):  # bf16 outputs: a few ulps after 16 steps
         torch.testing.assert_close(g.float(), r.float(), atol=2e-2,
                                    rtol=2e-2)
+
+
+def _rel_close(got, ref, rtol):
+    """max |got - ref| within rtol of max |ref| (f32)."""
+    got, ref = got.float(), ref.float()
+    assert bool(got.isfinite().all())
+    err = float((got - ref).abs().max())
+    assert err <= rtol * float(ref.abs().max()) + 1e-6, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", [(3, 64), (20, 256)])
+def test_lstm_bwd_kernel_matches_plain_on_card(cuda, b, h):
+    xw, mask, h0, c0, wh = (torch.from_numpy(a).cuda().bfloat16()
+                            for a in _lstm_inputs(7, 16, b, h))
+    _h, c_seq, acts = lstm_scan(xw, mask, h0, c0, wh, with_acts=True)
+    g = torch.Generator().manual_seed(b)
+    g_h = (torch.randn(16, b, h, generator=g) * 0.1).cuda().bfloat16()
+    g_c = torch.zeros_like(g_h)
+    g_c[-1] = g_h[0]
+    args = (acts, torch.cat([c0[None], c_seq[:-1]]), g_h, g_c, mask, wh)
+    # the same f32 arithmetic; a bf16 dgate may round one ulp apart
+    for got, ref in zip(lstm_scan_bwd(*args), lstm_scan_bwd_ref(*args)):
+        _rel_close(got, ref, 2e-2)
+
+
+@pytest.mark.cuda
+def test_lstm_scan_fn_grads_track_plain_autograd_on_card(cuda):
+    xw, mask, h0, c0, wh = (torch.from_numpy(a).cuda().bfloat16()
+                            for a in _lstm_inputs(9, 16, 20, 256))
+    g = torch.Generator().manual_seed(0)
+    cots = tuple((torch.randn(16, 20, 256, generator=g) * 0.1).cuda()
+                 .bfloat16() for _ in range(2))
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in (xw, h0, c0, wh)]
+        out = fn(leaves[0], mask, *leaves[1:])
+        return torch.autograd.grad(out, leaves, cots)
+
+    # the kernels round the gates, c_prev and dgates to bf16 where the
+    # plain autograd keeps f32 (the TPU package's design)
+    for got, ref in zip(grads(LstmScanFn.apply), grads(lstm_scan_ref)):
+        _rel_close(got, ref, 5e-2)
 
 
 @pytest.mark.cuda

@@ -180,6 +180,8 @@ def test_import_does_not_load_jax_or_the_jax_package():
         "before = set(sys.modules)\n"
         "import dasa_tpu_torch, dasa_tpu_torch.ops, dasa_tpu_torch.testing\n"
         "import dasa_tpu_torch.train.trainer, dasa_tpu_torch.utils.jax_params\n"
+        "import dasa_tpu_torch.cli, dasa_tpu_torch.train.optim\n"
+        "import dasa_tpu_torch.train.metrics\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'dasa_tpu')]\n"
         "assert not bad, bad\n")

@@ -13,7 +13,11 @@ Phases:
   2. kernels — each kernel against its plain PyTorch version on the card
      at the headline shapes, with the tolerance stated; times (CUDA
      events, median) of kernel, plain version and one yardstick PyTorch
-     call, beside the least time the card could take.
+     call, and the kernel / yardstick ratio, beside the least time the
+     card could take.  Also the device time of kernel and yardstick
+     alone (calls back to back, so the host's launch work drops out);
+     the AdaIN gate's tile width and the LSTM backward's launch plan and
+     time per token.
   3. main — the launch counters set to 0, ``valid()`` (argmax evaluation
      of val_seen and val_unseen) at the full headline DASA width over a
      synthetic world, the counters read back; SR/SPL/NE per split,
@@ -37,7 +41,9 @@ Phases:
      iteration at headline width under torch.profiler, each after a
      warm-up: device time by kernel, the device's busy share of the wall.
 Then one ``{"kernels": [...]}`` JSON line (``launches``: the count during
-``train()``; ``launches_eval``: during ``valid()``), and as the last line
+``train()``; ``launches_eval``: during ``valid()``; ``ratio``: ``ms`` /
+``library_ms``; ``device_ms`` / ``library_device_ms``: the back-to-back
+device times), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 no phase is caught and ignored.  Imports nothing of JAX or dasa_tpu.
 """
@@ -112,6 +118,37 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
+    """Device time per call: ``iters`` calls back to back behind a GPU
+    sleep long enough for the host to enqueue them all, so that no call
+    waits on the host; CUDA events around the run, the median of ``reps``
+    runs, after warm-up.  (:func:`time_ms`'s events around one call also
+    count the host's launch work, longer than the short kernels.)"""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(3):
+        fn()
+    host_s = (time.perf_counter() - start) / 3
+    torch.cuda.synchronize()
+    cycles = int(host_s * iters * 1.5 * 2.0e9)  # SM clock <= 2 GHz
+    times = []
+    for _ in range(reps):
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        begin.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(begin.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
 def bound_ms(n_bytes: float, flops: float):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_BF16 * 1e3
@@ -149,7 +186,8 @@ def phase_build():
     log = path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if ("registers" in line or "spill" in line or "entry function"
+                    in line or line.startswith("==")):
                 print(f"  {line.strip()}")
     return card
 
@@ -158,12 +196,15 @@ def phase_kernels(seed: int):
     """Each kernel at its headline shapes against its plain version."""
     import torch
 
+    from dasa_tpu_torch.ops import _build
     from dasa_tpu_torch.ops.adain import (
         adain_channel_gate,
         adain_channel_gate_ref,
+        adain_plan,
     )
     from dasa_tpu_torch.ops.lstm import (
         _fwd_ref,
+        bwd_plan,
         lstm_scan,
         lstm_scan_bwd,
         lstm_scan_bwd_ref,
@@ -212,10 +253,10 @@ def phase_kernels(seed: int):
         rows.append(dict(
             name="lstm_scan", shape="T80 B20 H1024 (one direction)",
             max_abs_err=err,
-            ms=time_ms(lambda: lstm_scan(xw, mask, h0, c0, wh)),
+            fn=lambda: lstm_scan(xw, mask, h0, c0, wh),
             plain_ms=time_ms(lambda: lstm_scan_ref(xw, mask, h0, c0, wh),
                              iters=5),
-            library_ms=time_ms(lambda: lstm_cudnn(packed)),
+            library_fn=lambda: lstm_cudnn(packed),
             library_call="torch.nn.LSTM (cuDNN) on a PackedSequence, input "
                          "768 (includes the input projection)",
             bound_ms=b_ms, bound_by=b_by))
@@ -244,18 +285,22 @@ def phase_kernels(seed: int):
     n_bytes = (2 * (ak.numel() + 3 * g_h.numel() + mask.numel() + wh.numel()
                     + ak.numel()) + 4 * 2 * B * H)
     b_ms, b_by = bound_ms(n_bytes, 2.0 * T * B * H * 4 * H)
+    plan = bwd_plan(T, B, H, _build.sm_count(ak))
+    print(f"  lstm_scan_bwd: {plan.ctas} CTAs (no clusters), {plan.stages} "
+          f"stages of {plan.kc} columns, {plan.smem} bytes of shared memory",
+          flush=True)
     rows.append(dict(
         name="lstm_scan_bwd", shape="T80 B20 H1024 (one direction)",
-        max_abs_err=err,
-        ms=time_ms(lambda: lstm_scan_bwd(*bwd_args)),
+        max_abs_err=err, fn=lambda: lstm_scan_bwd(*bwd_args),
         plain_ms=time_ms(lambda: lstm_scan_bwd_ref(*bwd_args), iters=5),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            out_c.data, lib_inputs, go, retain_graph=True)),
+        library_fn=lambda: torch.autograd.grad(
+            out_c.data, lib_inputs, go, retain_graph=True),
         library_call="backward of the torch.nn.LSTM (cuDNN) call above "
                      "(includes the input-projection grads)",
         bound_ms=b_ms, bound_by=b_by))
     # K3: the AdaIN gate, panorama (720 rows) and candidates (320 rows)
     C = 2048
+    n_sm = _build.sm_count(xw)
     w_t = rnd(C, C, scale=1.0 / math.sqrt(C))           # torch a_fc.weight
     bias = rnd(C, scale=0.1)
     for label, n in (("pano", B * 36), ("cand", B * 16)):
@@ -276,13 +321,16 @@ def phase_kernels(seed: int):
                        + f.numel())
         b_ms, b_by = bound_ms(n_bytes, 2.0 * n * C * C)
         d2 = d.reshape(n, C)
+        k3 = adain_plan(n, C, C, n_sm)
+        print(f"  adain_channel_gate {label}: tiles 128x{k3.bn}, grid "
+              f"{k3.grid}, {k3.stages} stages", flush=True)
         rows.append(dict(
             name=f"adain_channel_gate[{label}]", shape=f"{n}x{C} @ {C}x{C}",
             max_abs_err=max(e1, e2),
-            ms=time_ms(lambda: adain_channel_gate(f, d, w_t.t(), bias)),
+            fn=lambda f=f, d=d: adain_channel_gate(f, d, w_t.t(), bias),
             plain_ms=time_ms(
                 lambda: adain_channel_gate_ref(f, d, w_t.t(), bias)),
-            library_ms=time_ms(lambda: torch.addmm(bias, d2, w_kc)),
+            library_fn=lambda d2=d2, w_kc=w_kc: torch.addmm(bias, d2, w_kc),
             library_call="torch.addmm, the bare GEMM (a floor)",
             bound_ms=b_ms, bound_by=b_by))
 
@@ -306,16 +354,34 @@ def phase_kernels(seed: int):
     rows.append(dict(
         name="shift_attend", shape="B20 T36 C2176 H1024 k5",
         max_abs_err=err,
-        ms=time_ms(lambda: shift_attend(h, ctx, w_in, w_s, b_s)),
+        fn=lambda: shift_attend(h, ctx, w_in, w_s, b_s),
         plain_ms=time_ms(lambda: shift_attend_ref(h, ctx, w_in, w_s, b_s)),
-        library_ms=None, library_call=None, bound_ms=b_ms, bound_by=b_by))
+        library_fn=None, library_call=None, bound_ms=b_ms, bound_by=b_by))
     check_function_grads(rnd, mask, wh, w_t, bias, w_in, w_s, b_s)
     for r in rows:
+        fn, lib_fn = r.pop("fn"), r.pop("library_fn")
+        # K1 and its cuDNN forward under no_grad; K2's yardstick is a
+        # backward
+        with torch.set_grad_enabled(r["name"] != "lstm_scan"):
+            r["ms"], r["device_ms"] = time_ms(fn), device_ms(fn)
+            r["library_ms"], r["library_device_ms"] = (
+                (None, None) if lib_fn is None
+                else (time_ms(lib_fn), device_ms(lib_fn)))
+        r["ratio"] = (None if r["library_ms"] is None
+                      else r["ms"] / r["library_ms"])
         lib = ("n/a" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms ({r['library_call']})")
-        print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+               else f"{r['library_ms']:.4f} ms ({r['library_call']}), "
+                    f"kernel / library {r['ratio']:.3f}; device time "
+                    f"{r['library_device_ms']:.4f} ms, kernel / library "
+                    f"{r['device_ms'] / r['library_device_ms']:.3f}")
+        print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms "
+              f"(device time {r['device_ms']:.4f} ms), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {lib}", flush=True)
+        if r["name"] == "lstm_scan_bwd":
+            print(f"  lstm_scan_bwd per token: {r['ms'] * 1e3 / T:.3f} us "
+                  f"(device time {r['device_ms'] * 1e3 / T:.3f} us)",
+                  flush=True)
     return rows
 
 
@@ -703,6 +769,8 @@ def main() -> None:
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                    "ratio": r["ratio"], "device_ms": r["device_ms"],
+                    "library_device_ms": r["library_device_ms"],
                     "pass": True})  # a failed check exits before this
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,8 +36,10 @@ _I = ctypes.c_int
 # C entry points: name -> argument types (pointers, ints, then the stream)
 ENTRY_POINTS = {
     "dasa_lstm_fwd": [_P] * 9 + [_I] * 5 + [_P],
-    "dasa_lstm_bwd": [_P] * 10 + [_I] * 5 + [_P],
-    "dasa_adain_gate": [_P] * 6 + [_I] * 3 + [_P],
+    "dasa_lstm_bwd": [_P] * 11 + [_I] * 5 + [_P],
+    "dasa_lstm_bwd_smem": [_I] * 5,
+    "dasa_adain_gate": [_P] * 6 + [_I] * 4 + [_P],
+    "dasa_adain_gate_smem": [_I],
     "dasa_shift_attend": [_P] * 8 + [_I] * 7 + [_P],
 }
 

@@ -3,9 +3,11 @@
 Port of the TPU kernel ``dasa_tpu/ops/adain.py:_kernel`` (via
 ``_pallas_forward`` / ``adain_channel_gate``): out = sigmoid(d W + b) * f
 * noise in one pass, the published DASA config (``ab_type=a``,
-``a_type=sigmoid``).  The kernel (``csrc/adain_gate.cu``) is a tiled
-tensor-core GEMM with the gate fused into its epilogue; its source note
-says what bounds it and how the design answers.
+``a_type=sigmoid``).  The kernel (``csrc/adain_gate.cu``) is a
+warp-specialised TMA + ``wgmma`` GEMM with the gate fused into its
+epilogue; its source note says what bounds it and how the design
+answers.  :func:`adain_plan` is its launch plan, in Python so that the
+CPU tests reach it.
 
 :class:`AdainGateFn` is what the modules call: the kernel forward and the
 JAX package's plain f32 backward (``dasa_tpu/ops/adain.py:_bwd``; the TPU
@@ -14,11 +16,49 @@ package has no backward kernel for this op, so neither has the port).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from dasa_tpu_torch.ops import _build
+
+# csrc/adain_gate.cu: rows per CTA, K elements per stage (two 64-wide
+# boxes), threads
+ADAIN_BM = 128
+ADAIN_SK = 128
+ADAIN_THREADS = 288
+# output tile width -> ring stages (Tile<BN>::kStages)
+ADAIN_STAGES = {128: 3, 64: 4}
+
+
+class AdainPlan(NamedTuple):
+    bn: int          # output columns per CTA
+    stages: int      # depth of the TMA ring
+    grid: tuple      # (C / bn, ceil(n / 128))
+    smem: int        # dynamic shared memory per CTA, bytes
+
+
+def adain_plan(n: int, c: int, k: int, n_sm: int = 132) -> AdainPlan:
+    """Launch plan of ``csrc/adain_gate.cu`` for n rows, C outputs and K
+    inputs on a card of ``n_sm`` SMs; raises on shapes the tiling cannot
+    take.  Output tiles are 128 x 128, or 128 x 64 when 128 x 128 tiles
+    would fill at most half the SMs (on an H100 at C = K = 2048 that is
+    the candidates' 320 rows, where 128 x 64 measured faster, and not the
+    panorama's 720; PERF.md)."""
+    if n < 1:
+        raise ValueError(f"adain_channel_gate: n={n} rows; need at least 1")
+    if c % 64:
+        raise ValueError(f"adain_channel_gate: C={c} must be a multiple of "
+                         "64 (the output tile's width)")
+    if k % 8:
+        raise ValueError(f"adain_channel_gate: K={k} must be a multiple of "
+                         "8 (TMA needs 16-byte row strides)")
+    tiles_128 = (c // 128) * -(-n // ADAIN_BM)
+    bn = 128 if c % 128 == 0 and 2 * tiles_128 > n_sm else 64
+    stages = ADAIN_STAGES[bn]
+    smem = (stages * (ADAIN_BM + bn) * ADAIN_SK * 2 + ADAIN_BM * bn * 2
+            + 256 + 1024)
+    return AdainPlan(bn, stages, (c // bn, -(-n // ADAIN_BM)), smem)
 
 
 def adain_channel_gate_ref(f, d, w, b, noise=None) -> torch.Tensor:
@@ -54,9 +94,7 @@ def adain_channel_gate(f, d, w, b, noise: Optional[torch.Tensor] = None
         raise ValueError(f"adain_channel_gate: shapes f {tuple(shape)}, d "
                          f"{tuple(d.shape)}, w {tuple(w.shape)}, b "
                          f"{tuple(b.shape)} do not match")
-    if c % 64 or k % 32:
-        raise ValueError(f"adain_channel_gate: C={c} must be a multiple of "
-                         f"64 and K={k} of 32")
+    plan = adain_plan(f.numel() // c, c, k, _build.sm_count(f))
     f2 = f.reshape(-1, c).contiguous()
     d2 = d.reshape(-1, k).contiguous()
     wt = w.t().contiguous()
@@ -71,7 +109,7 @@ def adain_channel_gate(f, d, w, b, noise: Optional[torch.Tensor] = None
     rc = lib.dasa_adain_gate(
         d2.data_ptr(), f2.data_ptr(), wt.data_ptr(), b.data_ptr(),
         None if noise is None else noise.data_ptr(), out.data_ptr(),
-        f2.shape[0], c, k, _build.stream_of(f2))
+        f2.shape[0], c, k, plan.bn, _build.stream_of(f2))
     _build.check(rc, "adain_channel_gate")
     adain_channel_gate.launches += 1
     return out.reshape(shape)

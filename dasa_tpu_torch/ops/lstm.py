@@ -7,9 +7,13 @@ DicEncoder re-runs its top BiLSTM every policy step, two directions of 80
 dependent tokens each.  The forward kernel (``csrc/lstm_fwd.cu``) keeps
 each CTA's slice of the recurrence weights in shared memory for the whole
 token loop, with a grid barrier per token, and can emit the gate
-activations; the backward kernel (``csrc/lstm_bwd.cu``) walks the tokens
-in reverse the same way and consumes them.  The source notes say what
-bounds each and how the design answers.
+activations; the backward kernel (``csrc/lstm_bwd.cu``) consumes them,
+walking the tokens in reverse with its slice of the weights resident
+too, but exchanging each token's dgates through an exchange copy and
+per-chunk readiness counters instead of a grid barrier.  The source
+notes say what bounds each and how the design answers;
+:func:`bwd_plan` is the backward's launch plan, in Python so that the
+CPU tests reach it.
 
 :class:`LstmScanFn` is what the modules call: K1 forward, K2 plus one
 ``torch.matmul`` for dWh backward, exactly as the JAX package's custom
@@ -21,11 +25,78 @@ on.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from dasa_tpu_torch.ops import _build
+
+# csrc/lstm_bwd.cu: units per CTA, threads (8 consumer warps + a producer
+# warp), row padding of the resident Wh rows, batch rows (4 m16 tiles)
+BWD_UNITS = 8
+BWD_THREADS = 288
+BWD_PAD = 8
+BWD_MAX_B = 64
+BWD_STAGES = 8  # the most ring stages a plan takes
+
+
+class BwdPlan(NamedTuple):
+    ctas: int             # H / 8: one CTA per 8 hidden units
+    kc: int               # gate columns per chunk of the dxw row
+    nchunks: int          # 4H / kc
+    stages: int           # chunks in the shared-memory ring
+    smem: int             # dynamic shared memory per CTA, bytes
+
+
+def _align(x: int) -> int:
+    return (x + 127) // 128 * 128
+
+
+def _bwd_smem(t_len: int, b: int, hd: int, kc: int, stages: int) -> int:
+    """Bytes of shared memory of ``lstm_bwd.cu:bwd_layout``."""
+    mt = (b + 15) // 16
+    total = _align(BWD_UNITS * (4 * hd + BWD_PAD) * 2)    # Wh rows
+    total = _align(total + stages * b * kc * 2)           # ring
+    total = _align(total + 2 * 7 * b * 16)                 # prefetch
+    total = _align(total + t_len * b * 2)                  # mask
+    for _ in range(3):                                     # dh, dc, dhm
+        total = _align(total + b * BWD_UNITS * 4)
+    total = _align(total + 8 * mt * 16 * BWD_UNITS * 4)    # partial sums
+    return _align(total + 2 * stages * 8)                  # mbarriers
+
+
+def bwd_plan(t_len: int, b: int, hd: int, n_sm: int) -> BwdPlan:
+    """Launch plan of ``csrc/lstm_bwd.cu``; raises on shapes it cannot
+    take, naming the constraint.  Every CTA must be resident at once (the
+    launch is cooperative), so the plan takes at most one per SM."""
+    if hd % 16:
+        raise ValueError(f"lstm_scan_bwd: H={hd} must be a multiple of 16 "
+                         "(8 units per CTA, 4H in chunks of 64 columns or "
+                         "more)")
+    if not 1 <= b <= BWD_MAX_B:
+        raise ValueError(f"lstm_scan_bwd: B={b} must lie in 1..{BWD_MAX_B} "
+                         "(four m16 tiles of batch rows)")
+    ctas = hd // BWD_UNITS
+    if ctas > n_sm:
+        raise ValueError(f"lstm_scan_bwd: H={hd} needs {ctas} CTAs resident "
+                         f"at once (8 units each), more than the {n_sm} SMs")
+    kc = next(k for k in (512, 256, 128, 64) if (4 * hd) % k == 0)
+    nchunks = 4 * hd // kc
+    if nchunks > 32:
+        raise ValueError(f"lstm_scan_bwd: H={hd} splits 4H into {nchunks} "
+                         f"chunks of {kc} columns; at most 32 (one lane of "
+                         "the producer warp each): take H a multiple of 128")
+    stages = min(BWD_STAGES, nchunks)
+    while (stages > 1
+           and _bwd_smem(t_len, b, hd, kc, stages) > _build.MAX_SMEM):
+        stages -= 1
+    smem = _bwd_smem(t_len, b, hd, kc, stages)
+    if smem > _build.MAX_SMEM:
+        raise ValueError(
+            f"lstm_scan_bwd: T={t_len}, B={b}, H={hd} needs {smem} bytes of "
+            f"shared memory per CTA, more than the {_build.MAX_SMEM} a block "
+            "may use (Wh rows 16 H, a chunk 2 B kc, the mask 2 T B)")
+    return BwdPlan(ctas, kc, nchunks, stages, smem)
 
 
 def _fwd_ref(xw, mask, h0, c0, wh):
@@ -112,10 +183,6 @@ def _units_per_cta(hidden: int, n_sm: int, least: int) -> int:
     return units
 
 
-def _align(x: int) -> int:
-    return (x + 127) // 128 * 128
-
-
 def _fwd_smem(b: int, hd: int, units: int, ksplit: int) -> int:
     """Bytes of shared memory of ``lstm_fwd.cu:lstm_layout``."""
     ld, mp, n = hd + 8, (b + 15) // 16 * 16, 4 * units
@@ -123,17 +190,6 @@ def _fwd_smem(b: int, hd: int, units: int, ksplit: int) -> int:
     total = _align(total + mp * ld * 2)
     total = _align(total + ksplit * mp * n * 4)
     return _align(_align(total + b * units * 4) + b * units * 4)
-
-
-def _bwd_smem(b: int, hd: int, units: int, kc: int) -> int:
-    """Bytes of shared memory of ``lstm_bwd.cu:bwd_layout``."""
-    mp = (b + 31) // 32 * 32
-    total = _align(units * (4 * hd + 8) * 2)
-    total = _align(total + 2 * mp * (kc + 8) * 2)
-    total = _align(total + 8 * mp * units * 4)
-    for _ in range(3):
-        total = _align(total + b * units * 4)
-    return total
 
 
 def _check_shapes(name, t_len, b, hd, **shapes):
@@ -209,33 +265,24 @@ def lstm_scan_bwd(acts, c_prev, g_h, g_c, mask, wh):
                   c_prev=(c_prev.shape, seq), g_h=(g_h.shape, seq),
                   g_c=(g_c.shape, seq), mask=(mask.shape, (t_len, b)),
                   wh=(wh.shape, (hd, 4 * hd)))
-    if hd % 8:
-        raise ValueError(f"lstm_scan_bwd: H={hd} must be a multiple of 8")
     acts, c_prev, g_h, g_c, mask = (
         x.contiguous() for x in (acts, c_prev, g_h, g_c, mask))
     wt = wh.t().contiguous()
     _build.require_cuda("lstm_scan_bwd", acts=acts, c_prev=c_prev, g_h=g_h,
                         g_c=g_c, mask=mask, wh=wt)
-    units = _units_per_cta(hd, _build.sm_count(acts), 8)
-    if (b + 31) // 32 * (units // 8) > 8:
-        raise ValueError(f"lstm_scan_bwd: B={b} with {units} units per CTA "
-                         "needs more than the kernel's 8 warp tiles")
-    kc = next(k for k in (512, 256, 128, 64, 32, 16) if (4 * hd) % k == 0)
-    smem = _bwd_smem(b, hd, units, kc)
-    if smem > _build.MAX_SMEM:
-        raise ValueError(
-            f"lstm_scan_bwd: B={b}, H={hd} needs {smem} bytes of shared "
-            f"memory per CTA, more than the {_build.MAX_SMEM} a block may use")
+    plan = bwd_plan(t_len, b, hd, _build.sm_count(acts))
     lib = _build.library()
     dxw = torch.empty_like(acts)
+    xr = torch.empty_like(acts)  # the kernel's exchange copy of dxw
     dh0 = torch.empty(b, hd, dtype=torch.float32, device=acts.device)
     dc0 = torch.empty_like(dh0)
-    barrier = torch.empty(1, dtype=torch.int32, device=acts.device)
+    ready = torch.empty(plan.nchunks * 32, dtype=torch.int32,  # 128 B each
+                        device=acts.device)
     rc = lib.dasa_lstm_bwd(
         acts.data_ptr(), c_prev.data_ptr(), g_h.data_ptr(), g_c.data_ptr(),
-        mask.data_ptr(), wt.data_ptr(), dxw.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), barrier.data_ptr(), t_len, b, hd, units, kc,
-        _build.stream_of(acts))
+        mask.data_ptr(), wt.data_ptr(), dxw.data_ptr(), xr.data_ptr(),
+        dh0.data_ptr(), dc0.data_ptr(), ready.data_ptr(), t_len, b, hd,
+        plan.kc, plan.stages, _build.stream_of(acts))
     _build.check(rc, "lstm_scan_bwd")
     lstm_scan_bwd.launches += 1
     return dxw, dh0, dc0

@@ -13,12 +13,17 @@ import numpy as np
 import pytest
 import torch
 
+from dasa_tpu_torch.ops import _build
 from dasa_tpu_torch.ops.adain import (
     adain_channel_gate,
     adain_channel_gate_ref,
+    adain_plan,
 )
 from dasa_tpu_torch.ops.lstm import (
     LstmScanFn,
+    _bwd_smem,
+    _fwd_ref,
+    bwd_plan,
     lstm_scan,
     lstm_scan_bwd,
     lstm_scan_bwd_ref,
@@ -69,20 +74,38 @@ def _rel_close(got, ref, rtol):
     assert err <= rtol * float(ref.abs().max()) + 1e-6, err
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,h", [(3, 64), (20, 256)])
-def test_lstm_bwd_kernel_matches_plain_on_card(cuda, b, h):
+def _bwd_args(b, h, t=16):
+    """Inputs of the backward from the plain forward (ragged mask)."""
     xw, mask, h0, c0, wh = (torch.from_numpy(a).cuda().bfloat16()
-                            for a in _lstm_inputs(7, 16, b, h))
-    _h, c_seq, acts = lstm_scan(xw, mask, h0, c0, wh, with_acts=True)
+                            for a in _lstm_inputs(7, t, b, h))
+    _h, c_seq, acts = _fwd_ref(xw, mask, h0, c0, wh)
     g = torch.Generator().manual_seed(b)
-    g_h = (torch.randn(16, b, h, generator=g) * 0.1).cuda().bfloat16()
+    g_h = (torch.randn(t, b, h, generator=g) * 0.1).cuda().bfloat16()
     g_c = torch.zeros_like(g_h)
     g_c[-1] = g_h[0]
-    args = (acts, torch.cat([c0[None], c_seq[:-1]]), g_h, g_c, mask, wh)
+    return acts, torch.cat([c0[None], c_seq[:-1]]), g_h, g_c, mask, wh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", [(3, 64), (20, 256), (20, 1024), (32, 1024)])
+def test_lstm_bwd_kernel_matches_plain_on_card(cuda, b, h):
+    args = _bwd_args(b, h)
     # the same f32 arithmetic; a bf16 dgate may round one ulp apart
     for got, ref in zip(lstm_scan_bwd(*args), lstm_scan_bwd_ref(*args)):
         _rel_close(got, ref, 2e-2)
+
+
+@pytest.mark.cuda
+def test_launch_plans_match_the_kernels_layouts_on_card(cuda):
+    lib = _build.library()
+    for t, b, h in ((16, 3, 64), (80, 20, 1024), (80, 32, 1024)):
+        plan = bwd_plan(t, b, h, 132)
+        assert lib.dasa_lstm_bwd_smem(t, b, h, plan.kc, plan.stages) == \
+            _bwd_smem(t, b, h, plan.kc, plan.stages) == plan.smem
+    for n, bn in ((320, 64), (720, 128)):  # the headline rows' widths
+        plan = adain_plan(n, 2048, 2048, 132)
+        assert plan.bn == bn
+        assert lib.dasa_adain_gate_smem(bn) == plan.smem
 
 
 @pytest.mark.cuda
@@ -105,16 +128,22 @@ def test_lstm_scan_fn_grads_track_plain_autograd_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [64, 100])
-def test_adain_kernel_matches_plain_on_card(cuda, n):
+@pytest.mark.parametrize("with_noise", [False, True])
+@pytest.mark.parametrize("c", [128, 2048])
+@pytest.mark.parametrize("n", [1, 64, 100, 320, 720])
+def test_adain_kernel_matches_plain_on_card(cuda, n, c, with_noise):
     g = torch.Generator().manual_seed(n)
-    f, d = (torch.randn(n, 128, generator=g).cuda().bfloat16()
+    f, d = (torch.randn(n, c, generator=g).cuda().bfloat16()
             for _ in range(2))
-    w = (torch.randn(128, 128, generator=g) * 0.1).cuda().bfloat16()
-    b = (torch.randn(128, generator=g) * 0.1).cuda().bfloat16()
-    torch.testing.assert_close(adain_channel_gate(f, d, w, b).float(),
-                               adain_channel_gate_ref(f, d, w, b).float(),
-                               atol=1e-2, rtol=1e-2)
+    w = (torch.randn(c, c, generator=g) / c ** 0.5).cuda().bfloat16()
+    b = (torch.randn(c, generator=g) * 0.1).cuda().bfloat16()
+    noise = (((torch.rand(c, generator=g) > 0.4) / 0.6).cuda().bfloat16()
+             if with_noise else None)
+    # f32 accumulation in both; the output rounds to bf16 once
+    torch.testing.assert_close(
+        adain_channel_gate(f, d, w, b, noise).float(),
+        adain_channel_gate_ref(f, d, w, b, noise).float(),
+        atol=1e-2, rtol=1e-2)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,136 @@
+"""Host-side launch plans of the port's redesigned kernels, on the CPU.
+
+``ops/adain.py:adain_plan`` (K3, ``csrc/adain_gate.cu``) and
+``ops/lstm.py:bwd_plan`` (K2, ``csrc/lstm_bwd.cu``) decide tiles, chunks,
+ring stages and shared memory in Python, so that these tests reach them
+without a card: the main path's shapes plan within a block's shared
+memory, the plans use the constants the CUDA sources declare, and shapes
+the kernels cannot take raise with the constraint named.  On the card,
+``tests/test_torch_kernels.py`` also holds the byte counts against the
+kernels' own layout functions.
+"""
+
+import re
+from pathlib import Path
+
+import pytest
+
+from dasa_tpu_torch.ops import _build
+from dasa_tpu_torch.ops.adain import (
+    ADAIN_BM,
+    ADAIN_SK,
+    ADAIN_STAGES,
+    ADAIN_THREADS,
+    adain_plan,
+)
+from dasa_tpu_torch.ops.lstm import (
+    BWD_MAX_B,
+    BWD_PAD,
+    BWD_STAGES,
+    BWD_THREADS,
+    BWD_UNITS,
+    _bwd_smem,
+    bwd_plan,
+)
+
+CSRC = Path(_build.CSRC)
+H100_SMS = 132
+
+
+def _constants(source):
+    """The namespace-level ``constexpr int name = value;`` lines of a CUDA
+    source, evaluated in order (a value may name an earlier constant)."""
+    out = {}
+    text = (CSRC / source).read_text()
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text,
+                                 re.M):
+        out[name] = eval(expr, {}, dict(out))  # noqa: S307 - our own source
+    return text, out
+
+
+@pytest.mark.parametrize("n,bn,grid", [(720, 128, (16, 6)),
+                                       (320, 64, (32, 3))])
+def test_adain_headline_plans_fit(n, bn, grid):
+    plan = adain_plan(n, 2048, 2048, H100_SMS)
+    assert (plan.bn, plan.grid) == (bn, grid)
+    assert plan.smem <= _build.MAX_SMEM
+
+
+@pytest.mark.parametrize("b,stages", [(20, 7), (32, 4)])
+def test_lstm_bwd_headline_plans_fit(b, stages):
+    plan = bwd_plan(80, b, 1024, H100_SMS)
+    assert plan.ctas == 128 and plan.kc == 512 and plan.nchunks == 8
+    assert plan.stages == stages
+    assert plan.smem == _bwd_smem(80, b, 1024, plan.kc, plan.stages)
+    assert plan.smem <= _build.MAX_SMEM
+    # one more stage would not fit, unless the ring already holds a row
+    assert (plan.stages == plan.nchunks or _bwd_smem(
+        80, b, 1024, plan.kc, plan.stages + 1) > _build.MAX_SMEM)
+
+
+def test_plans_use_the_constants_of_the_cuda_sources():
+    text, k3 = _constants("adain_gate.cu")
+    assert (k3["kBM"], k3["kSK"], k3["kThreads"]) == (
+        ADAIN_BM, ADAIN_SK, ADAIN_THREADS)
+    stages = re.search(r"kStages = BN == 128 \? (\d+) : (\d+);", text)
+    assert {128: int(stages[1]), 64: int(stages[2])} == ADAIN_STAGES
+    _text, k2 = _constants("lstm_bwd.cu")
+    assert k2["kUnits"] == BWD_UNITS and k2["kThreads"] == BWD_THREADS
+    assert k2["kPad"] == BWD_PAD
+    assert k2["kMaxMTiles"] * 16 == BWD_MAX_B
+
+
+def test_small_card_test_shapes_plan():
+    """The card tests' shapes launch too: K2 at H = 64 and 256 (8 and 32
+    CTAs), and K3 at C = K = 128 for 1, 64 and 100 rows."""
+    small = bwd_plan(16, 3, 64, H100_SMS)
+    assert (small.ctas, small.kc, small.nchunks, small.stages) == (8, 256, 1, 1)
+    mid = bwd_plan(16, 20, 256, H100_SMS)
+    assert (mid.ctas, mid.kc, mid.nchunks, mid.stages) == (32, 512, 2, 2)
+    for n in (1, 64, 100):
+        assert adain_plan(n, 128, 128, H100_SMS).grid[1] == 1
+
+
+@pytest.mark.parametrize("args,match", [
+    ((720, 96, 2048), "multiple of 64"),
+    ((720, 2048, 2044), "multiple of 8"),
+    ((0, 2048, 2048), "at least 1"),
+])
+def test_adain_plan_refuses_shapes_naming_the_constraint(args, match):
+    with pytest.raises(ValueError, match=match):
+        adain_plan(*args)
+
+
+@pytest.mark.parametrize("n,c,n_sm,bn", [
+    (720, 2048, 132, 128),   # 96 tiles of 128 x 128 fill more than half
+    (320, 2048, 132, 64),    # 48 would fill at most half: 96 of 128 x 64
+    (320, 2048, 64, 128),    # on a card of 64 SMs 48 tiles are enough
+    (720, 192, 132, 64),     # C not a multiple of 128
+])
+def test_adain_plan_takes_the_wide_tile_only_when_it_fills_the_card(
+        n, c, n_sm, bn):
+    plan = adain_plan(n, c, 2048, n_sm)
+    assert plan.bn == bn and plan.stages == ADAIN_STAGES[bn]
+    assert plan.grid == (c // bn, -(-n // ADAIN_BM))
+
+
+@pytest.mark.parametrize("args,match", [
+    ((80, 20, 72, H100_SMS), "multiple of 16"),
+    ((80, 65, 1024, H100_SMS), "1..64"),
+    ((80, 20, 2048, H100_SMS), "SMs"),
+    ((80, 20, 1040, H100_SMS), "at most 32"),
+    ((4000, 64, 1024, H100_SMS), "shared memory"),
+])
+def test_lstm_bwd_plan_refuses_shapes_naming_the_constraint(args, match):
+    with pytest.raises(ValueError, match=match):
+        bwd_plan(*args)
+
+
+@pytest.mark.parametrize("t,b", [(80, 64), (200, 20), (35, 1)])
+def test_lstm_bwd_plan_keeps_the_deepest_ring_that_fits(t, b):
+    plan = bwd_plan(t, b, 1024, H100_SMS)
+    assert 1 <= plan.stages <= min(BWD_STAGES, plan.nchunks)
+    assert plan.smem == _bwd_smem(t, b, 1024, plan.kc, plan.stages)
+    assert plan.smem <= _build.MAX_SMEM
+    assert (plan.stages == min(BWD_STAGES, plan.nchunks) or _bwd_smem(
+        t, b, 1024, plan.kc, plan.stages + 1) > _build.MAX_SMEM)

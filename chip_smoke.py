@@ -16,8 +16,12 @@ Phases:
      call, and the kernel / yardstick ratio, beside the least time the
      card could take.  Also the device time of kernel and yardstick
      alone (calls back to back, so the host's launch work drops out);
-     the AdaIN gate's tile width and the LSTM backward's launch plan and
-     time per token.
+     the launch plans (the AdaIN gate's tiles, the LSTM forward's grid
+     for one and two directions, the LSTM backward's chunks, the shift
+     attention's slices) and the LSTM kernels' time per token.  The LSTM
+     forward is timed for one direction, for both directions in one
+     launch with and without the gate activations, and as two
+     one-direction launches.
   3. main — the launch counters set to 0, ``valid()`` (argmax evaluation
      of val_seen and val_unseen) at the full headline DASA width over a
      synthetic world, the counters read back; SR/SPL/NE per split,
@@ -80,11 +84,16 @@ TRAIN = dict(
     ml_weight=0.2, feedback="sample", rollout_mode="episodic",
     fuse_passes="never", remat="never")
 TRAIN_ITERS = 8
-EVAL_KERNELS = ("lstm_scan", "adain_channel_gate", "shift_attend")
+# the wrappers the main path launches (lstm_scan, K1's one-direction
+# entry, is timed in phase 2 but not on the path: the BiLSTM takes both
+# directions in one launch)
+EVAL_KERNELS = ("bilstm_scan", "adain_channel_gate", "shift_attend")
+PATH_KERNELS = ("bilstm_scan", "lstm_scan_bwd", "adain_channel_gate",
+                "shift_attend")
 
 KERNEL_INFO = {
-    "lstm_scan": ("dasa_tpu_torch/csrc/lstm_fwd.cu",
-                  "dasa_tpu/ops/lstm.py:38 (_fwd_kernel)"),
+    "bilstm_scan": ("dasa_tpu_torch/csrc/lstm_fwd.cu",
+                    "dasa_tpu/ops/lstm.py:38 (_fwd_kernel)"),
     "lstm_scan_bwd": ("dasa_tpu_torch/csrc/lstm_bwd.cu",
                       "dasa_tpu/ops/lstm.py:65 (_bwd_kernel)"),
     "adain_channel_gate": ("dasa_tpu_torch/csrc/adain_gate.cu",
@@ -204,7 +213,10 @@ def phase_kernels(seed: int):
     )
     from dasa_tpu_torch.ops.lstm import (
         _fwd_ref,
+        bilstm_scan,
+        bilstm_scan_ref,
         bwd_plan,
+        fwd_plan,
         lstm_scan,
         lstm_scan_bwd,
         lstm_scan_bwd_ref,
@@ -213,6 +225,7 @@ def phase_kernels(seed: int):
     from dasa_tpu_torch.ops.shift_attention import (
         shift_attend,
         shift_attend_ref,
+        shift_plan,
     )
 
     dev = torch.device("cuda")
@@ -224,14 +237,18 @@ def phase_kernels(seed: int):
 
     rows = []
 
-    # K1: one direction of the top BiLSTM, T=80, B=20, H=1024
+    # K1: the top BiLSTM, T=80, B=20, H=1024; the reverse direction runs
+    # on the flipped sequence, so its masked tokens come first
     T, B, H, E = 80, 20, 1024, 768
+    n_sm = _build.sm_count(torch.empty(1, device=dev))
     lengths = torch.randint(20, T + 1, (B,), generator=gen)
     mask = (torch.arange(T)[:, None] < lengths[None, :]).to(dev, bf)
-    xw = rnd(T, B, 4 * H, scale=0.5)
-    h0, c0 = rnd(B, H, scale=0.1), rnd(B, H, scale=0.1)
-    wt = rnd(4 * H, H, scale=1.0 / math.sqrt(3 * H))   # torch weight_hh
-    wh = wt.t()
+    mask2 = torch.stack([mask, mask.flip(0)])
+    xw2 = rnd(2, T, B, 4 * H, scale=0.5)
+    h02, c02 = rnd(2, B, H, scale=0.1), rnd(2, B, H, scale=0.1)
+    wt2 = rnd(2, 4 * H, H, scale=1.0 / math.sqrt(3 * H))  # weight_hh x 2
+    wh2 = wt2.transpose(1, 2)
+    xw, h0, c0, wt, wh = xw2[0], h02[0], c02[0], wt2[0], wh2[0]
     hk, ck, ak = lstm_scan(xw, mask, h0, c0, wh, with_acts=True)
     torch.cuda.synchronize()
     hr, cr, ar = _fwd_ref(xw, mask, h0, c0, wh)
@@ -240,30 +257,67 @@ def phase_kernels(seed: int):
     err = max(check_close("lstm_scan h_seq", hk, hr, 2e-2, 0.0),
               check_close("lstm_scan c_seq", ck, cr, 2e-2, 1e-2),
               check_close("lstm_scan acts", ak, ar, 2e-2, 0.0))
+    got2 = bilstm_scan(xw2, mask2, h02, c02, wh2, with_acts=True)
+    torch.cuda.synchronize()
+    ref2 = bilstm_scan_ref(xw2, mask2, h02, c02, wh2)
+    err2 = max(check_close("bilstm_scan h_seq", got2[0], ref2[0], 2e-2, 0.0),
+               check_close("bilstm_scan c_seq", got2[1], ref2[1], 2e-2, 1e-2),
+               check_close("bilstm_scan acts", got2[2], ref2[2], 2e-2, 0.0))
+    for dirs in (1, 2):
+        p = fwd_plan(T, B, H, n_sm, dirs)
+        print(f"  lstm_fwd, {dirs} direction(s): {p.ctas} CTAs of {p.units} "
+              f"units, {p.smem} bytes of shared memory", flush=True)
     # torch does not flatten bf16 cuDNN weights (it warns): each call
     # compacts them first, a ~15 MB copy
     lstm_cudnn = torch.nn.LSTM(E, H, device=dev, dtype=bf)
+    bilstm_cudnn = torch.nn.LSTM(E, H, device=dev, dtype=bf,
+                                 bidirectional=True)
     x_in = rnd(T, B, E).requires_grad_()
     packed = torch.nn.utils.rnn.pack_padded_sequence(
         x_in, lengths, enforce_sorted=False)
     n_bytes = 2 * (xw.numel() + mask.numel() + 2 * h0.numel() + wh.numel()
                    + 2 * T * B * H)
     b_ms, b_by = bound_ms(n_bytes, 2.0 * T * B * H * 4 * H)
+    b2_ms, b2_by = bound_ms(2 * n_bytes, 2 * 2.0 * T * B * H * 4 * H)
+    b2a_ms, b2a_by = bound_ms(2 * n_bytes + 2 * xw2.numel(),
+                              2 * 2.0 * T * B * H * 4 * H)
+    cudnn = "torch.nn.LSTM (cuDNN) on a PackedSequence, input 768 " \
+            "(includes the input projection)"
     with torch.no_grad():
         rows.append(dict(
             name="lstm_scan", shape="T80 B20 H1024 (one direction)",
-            max_abs_err=err,
+            max_abs_err=err, tokens=T, json=False,
             fn=lambda: lstm_scan(xw, mask, h0, c0, wh),
             plain_ms=time_ms(lambda: lstm_scan_ref(xw, mask, h0, c0, wh),
                              iters=5),
-            library_fn=lambda: lstm_cudnn(packed),
-            library_call="torch.nn.LSTM (cuDNN) on a PackedSequence, input "
-                         "768 (includes the input projection)",
+            library_fn=lambda: lstm_cudnn(packed), library_call=cudnn,
             bound_ms=b_ms, bound_by=b_by))
-        ms_acts = time_ms(lambda: lstm_scan(xw, mask, h0, c0, wh,
-                                            with_acts=True))
-        print(f"  lstm_scan with the acts output (training): {ms_acts:.4f} "
-              "ms", flush=True)
+        rows.append(dict(
+            name="bilstm_scan", shape="2 x T80 B20 H1024 (both directions)",
+            max_abs_err=err2, tokens=T,
+            fn=lambda: bilstm_scan(xw2, mask2, h02, c02, wh2),
+            plain_ms=time_ms(lambda: bilstm_scan_ref(xw2, mask2, h02, c02,
+                                                     wh2), iters=3),
+            library_fn=lambda: bilstm_cudnn(packed),
+            library_call="bidirectional " + cudnn,
+            bound_ms=b2_ms, bound_by=b2_by))
+        rows.append(dict(
+            name="bilstm_scan[acts]",
+            shape="2 x T80 B20 H1024 with the gate activations (training)",
+            max_abs_err=err2, tokens=T,
+            fn=lambda: bilstm_scan(xw2, mask2, h02, c02, wh2,
+                                   with_acts=True),
+            plain_ms=time_ms(lambda: bilstm_scan_ref(xw2, mask2, h02, c02,
+                                                     wh2), iters=3),
+            library_fn=None, library_call=None,
+            bound_ms=b2a_ms, bound_by=b2a_by))
+        two = [lambda d=d: lstm_scan(xw2[d], mask2[d], h02[d], c02[d],
+                                     wh2[d], with_acts=True)
+               for d in range(2)]
+        pair = device_ms(lambda: [f() for f in two])
+        print(f"  lstm_scan, both directions as two launches with acts "
+              f"(the parent's call pattern): device time {pair:.4f} ms",
+              flush=True)
 
     # K2: the backward of the same direction; h_seq's cotangent at every
     # token, c_seq's only at the last (the final carry feeds the decoder)
@@ -291,7 +345,7 @@ def phase_kernels(seed: int):
           flush=True)
     rows.append(dict(
         name="lstm_scan_bwd", shape="T80 B20 H1024 (one direction)",
-        max_abs_err=err, fn=lambda: lstm_scan_bwd(*bwd_args),
+        max_abs_err=err, tokens=T, fn=lambda: lstm_scan_bwd(*bwd_args),
         plain_ms=time_ms(lambda: lstm_scan_bwd_ref(*bwd_args), iters=5),
         library_fn=lambda: torch.autograd.grad(
             out_c.data, lib_inputs, go, retain_graph=True),
@@ -300,7 +354,6 @@ def phase_kernels(seed: int):
         bound_ms=b_ms, bound_by=b_by))
     # K3: the AdaIN gate, panorama (720 rows) and candidates (320 rows)
     C = 2048
-    n_sm = _build.sm_count(xw)
     w_t = rnd(C, C, scale=1.0 / math.sqrt(C))           # torch a_fc.weight
     bias = rnd(C, scale=0.1)
     for label, n in (("pano", B * 36), ("cand", B * 16)):
@@ -347,6 +400,9 @@ def phase_kernels(seed: int):
     # logits: f32 sums of 2176 products in another order; out: bf16
     err = max(check_close("shift_attend logits", lk, lrf, 1e-3, 1e-4),
               check_close("shift_attend out", ok_, orf, 1e-2, 1e-2))
+    k4 = shift_plan(B, 36, Cf, H, ks, n_sm)
+    print(f"  shift_attend: {k4.ctas} CTAs of {k4.sw} columns, {k4.smem} "
+          "bytes of shared memory", flush=True)
     n_bytes = (2 * (h.numel() + ctx.numel() + w_in.numel() + w_s.numel()
                     + ks + B * Cf) + 4 * B * 36)
     flops = 2.0 * B * H * (Cf + ks) + 2 * 2.0 * B * 36 * Cf
@@ -357,12 +413,13 @@ def phase_kernels(seed: int):
         fn=lambda: shift_attend(h, ctx, w_in, w_s, b_s),
         plain_ms=time_ms(lambda: shift_attend_ref(h, ctx, w_in, w_s, b_s)),
         library_fn=None, library_call=None, bound_ms=b_ms, bound_by=b_by))
-    check_function_grads(rnd, mask, wh, w_t, bias, w_in, w_s, b_s)
+    check_function_grads(rnd, mask, wh, w_t, bias, w_in, w_s, b_s, mask2,
+                         wh2)
     for r in rows:
         fn, lib_fn = r.pop("fn"), r.pop("library_fn")
         # K1 and its cuDNN forward under no_grad; K2's yardstick is a
         # backward
-        with torch.set_grad_enabled(r["name"] != "lstm_scan"):
+        with torch.set_grad_enabled(r["name"] == "lstm_scan_bwd"):
             r["ms"], r["device_ms"] = time_ms(fn), device_ms(fn)
             r["library_ms"], r["library_device_ms"] = (
                 (None, None) if lib_fn is None
@@ -378,21 +435,27 @@ def phase_kernels(seed: int):
               f"(device time {r['device_ms']:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {lib}", flush=True)
-        if r["name"] == "lstm_scan_bwd":
-            print(f"  lstm_scan_bwd per token: {r['ms'] * 1e3 / T:.3f} us "
-                  f"(device time {r['device_ms'] * 1e3 / T:.3f} us)",
-                  flush=True)
+        if "tokens" in r:
+            r["us_per_token"] = r["device_ms"] * 1e3 / r.pop("tokens")
+            print(f"  {r['name']} per token: {r['us_per_token']:.3f} us of "
+                  "device time", flush=True)
     return rows
 
 
-def check_function_grads(rnd, mask, wh, w_ta, b_a, w_in, w_s, b_s):
-    """Gradients of LstmScanFn, AdainGateFn and ShiftAttendFn (kernels
-    forward) against autograd through the plain versions, at the headline
-    shapes, for a random cotangent."""
+def check_function_grads(rnd, mask, wh, w_ta, b_a, w_in, w_s, b_s, mask2,
+                         wh2):
+    """Gradients of LstmScanFn, BiLstmScanFn, AdainGateFn and
+    ShiftAttendFn (kernels forward) against autograd through the plain
+    versions, at the headline shapes, for a random cotangent."""
     import torch
 
     from dasa_tpu_torch.ops.adain import AdainGateFn, adain_channel_gate_ref
-    from dasa_tpu_torch.ops.lstm import LstmScanFn, lstm_scan_ref
+    from dasa_tpu_torch.ops.lstm import (
+        LstmScanFn,
+        bilstm_scan_fn,
+        bilstm_scan_ref,
+        lstm_scan_ref,
+    )
     from dasa_tpu_torch.ops.shift_attention import (
         ShiftAttendFn,
         shift_attend_ref,
@@ -423,6 +486,14 @@ def check_function_grads(rnd, mask, wh, w_ta, b_a, w_in, w_s, b_s):
             lambda xw, h0, c0, w: lstm_scan_ref(xw, mask, h0, c0, w),
             lstm_leaves, ("xw", "h0", "c0", "wh"),
             (rnd(T, B, H, scale=0.05), g_c), 5e-2)
+    g_c2 = torch.zeros(2, T, B, H, device=mask.device, dtype=mask.dtype)
+    g_c2[:, -1] = rnd(2, B, H, scale=0.05)
+    compare("BiLstmScanFn",
+            lambda xw, h0, c0, w: bilstm_scan_fn(xw, mask2, h0, c0, w),
+            lambda xw, h0, c0, w: bilstm_scan_ref(xw, mask2, h0, c0, w)[:2],
+            (rnd(2, T, B, 4 * H, scale=0.5), rnd(2, B, H, scale=0.1),
+             rnd(2, B, H, scale=0.1), wh2), ("xw", "h0", "c0", "wh"),
+            (rnd(2, T, B, H, scale=0.05), g_c2), 5e-2)
     C = w_ta.shape[0]
     f, d = rnd(B, 36, C).relu(), rnd(B, 36, C).relu()
     noise = (rnd(C) > -0.25).to(f.dtype) / 0.6
@@ -572,8 +643,8 @@ def phase_train(cfg, world, seed: int, root: str):
     losses = [float(x) for x in agent.logs["loss"]]
     steps = agent.env_steps_total()
     print(f"  launches during train(): {launches}", flush=True)
-    for name, count in launches.items():
-        if count <= 0:
+    for name in PATH_KERNELS:
+        if launches[name] <= 0:
             fail(f"kernel {name} never launched during train()")
     if len(iter_s) != TRAIN_ITERS or agent.iter_count != TRAIN_ITERS:
         fail(f"train(): {agent.iter_count} optimizer steps, "
@@ -758,8 +829,21 @@ def main() -> None:
                 print("== profile: one eval batch, one training iteration",
                       flush=True)
                 phase_profile(cfg, cfg_train, world, args.seed)
+    if rows:
+        print("== phase 2 rows with the launches of phases 3 and 5", flush=True)
+    for r in rows:
+        base = r["name"].split("[")[0]
+        per_token = ("" if "us_per_token" not in r
+                     else f", {r['us_per_token']:.3f} us a token")
+        print(f"  {r['name']}: {r['ms']:.4f} ms one call, {r['device_ms']:.4f}"
+              f" ms device, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"launches {launches.get(base, 0)} in train() and "
+              f"{launches_eval.get(base, 0)} in valid(){per_token}",
+              flush=True)
     out = []
     for r in rows:
+        if not r.get("json", True):
+            continue
         base = r["name"].split("[")[0]
         src, replaces = KERNEL_INFO[base]
         out.append({"name": r["name"], "route": "cuda", "source": src,

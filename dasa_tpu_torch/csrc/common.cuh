@@ -51,21 +51,4 @@ __host__ __device__ __forceinline__ size_t align_up(size_t x, size_t a) {
   return (x + a - 1) / a * a;
 }
 
-// All CTAs of a cooperative grid arrive; the counter is zeroed before
-// launch and grows by gridDim.x per call, so call n (from 1) waits for
-// n * gridDim.x arrivals.  Writes before the barrier are visible after it
-// to reads that bypass L1 (__ldcg, cp.async.cg).
-__device__ __forceinline__ void grid_barrier(unsigned int* counter,
-                                             unsigned int target) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    atomicAdd(counter, 1u);
-    volatile unsigned int* vc = counter;
-    while (*vc < target) __nanosleep(32);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 }  // namespace dasa

@@ -107,35 +107,6 @@ __host__ __device__ inline Layout bwd_layout(int T, int B, int H, int kc,
   return l;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   dasa::smem_u32(smem)),
-               "l"(gmem));
-}
-
-// ldmatrix from a shared-memory address (this lane's row)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_kernel(const bf16* __restrict__ acts,    // (T, B, 4H)
                 const bf16* __restrict__ c_prev,  // (T, B, H)
@@ -243,7 +214,7 @@ lstm_bwd_kernel(const bf16* __restrict__ acts,    // (T, B, 4H)
           const bf16* base = kind == 0 ? c_prev : kind == 1 ? g_h : g_c;
           src = base + ((size_t)t * B + b) * H + u0;
         }
-        cp_async16(dst + i, src);
+        dasa::cp_async16(dst + i, src);
       }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     };
@@ -349,10 +320,11 @@ lstm_bwd_kernel(const bf16* __restrict__ acts,    // (T, B, 4H)
 #pragma unroll
         for (int j = 0; j < kMaxJ; ++j) {
           if (warp + kConsumerWarps * j < kc / 16) {
-            ldmatrix_x2(bfrag[j], b_base + 256 * j);
+            dasa::ldmatrix_x2(bfrag[j], b_base + 256 * j);
 #pragma unroll
             for (int m = 0; m < kMaxMTiles; ++m)
-              if (m < mt) ldmatrix_x4(afrag[j][m], a_base + a_lane[m] + 256 * j);
+              if (m < mt)
+                dasa::ldmatrix_x4(afrag[j][m], a_base + a_lane[m] + 256 * j);
           }
         }
 #pragma unroll
@@ -360,7 +332,7 @@ lstm_bwd_kernel(const bf16* __restrict__ acts,    // (T, B, 4H)
           if (warp + kConsumerWarps * j < kc / 16) {
 #pragma unroll
             for (int m = 0; m < kMaxMTiles; ++m)
-              if (m < mt) mma_16816(acc[m], afrag[j][m], bfrag[j]);
+              if (m < mt) dasa::mma_16816(acc[m], afrag[j][m], bfrag[j]);
           }
         }
         __syncwarp();

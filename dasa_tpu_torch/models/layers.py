@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from dasa_tpu_torch.ops.lstm import lstm_scan_fn
+from dasa_tpu_torch.ops.lstm import bilstm_scan_fn
 from dasa_tpu_torch.ops.shift_attention import shift_attend_fn
 
 NEG_INF = -1e9  # softmax mask value (finite to keep grads NaN-free)
@@ -145,8 +145,11 @@ class BiLSTM(nn.Module):
     model.py:66-68).  Masked tokens pass the carry on, as PackedSequence
     does.
 
-    ``kernel=True`` runs each direction through ``ops.lstm.LstmScanFn``
-    (f32 carry; the CUDA kernels on the card); otherwise both directions
+    ``kernel=True`` runs both directions through ``ops.lstm.BiLstmScanFn``
+    (f32 carry; on the card one launch of the forward kernel for both
+    directions, where the JAX package makes one call per direction for
+    lack of VMEM, ``dasa_tpu/models/layers.py:170-172``); otherwise both
+    directions
     run as one plain token loop over stacked (2, B) states whose carry
     stays in the compute dtype (``dasa_tpu/models/layers.py:195-229``)."""
 
@@ -181,20 +184,19 @@ class BiLSTM(nn.Module):
         batch = x.shape[0]
         feats = self.features
         if kernel:
-            zeros = torch.zeros(batch, feats, dtype=dt, device=x.device)
-
-            def run(sfx, xs, ms):
-                wi, wh, b = self._dir(sfx)
-                xw = (xs @ wi.t() + b).transpose(0, 1)         # (T, B, 4H)
-                m = ms.transpose(0, 1).to(dt)                  # (T, B)
-                h_seq, c_seq = lstm_scan_fn(xw, m, zeros, zeros, wh.t())
-                return ((h_seq * m[..., None]).transpose(0, 1),
-                        h_seq[-1], c_seq[-1])
-
-            out_f, hf, cf = run("", x, mask)
-            out_b_rev, hb, cb = run("_reverse", x_rev, m_rev)
-            ctx = torch.cat([out_f, out_b_rev.flip(1)], dim=-1)
-            return ctx, (torch.cat([hb, hf], -1), torch.cat([cb, cf], -1))
+            # both directions in one launch of the forward kernel
+            (wi_f, wh_f, b_f), (wi_b, wh_b, b_b) = (self._dir(""),
+                                                    self._dir("_reverse"))
+            xw = torch.stack([x @ wi_f.t() + b_f, x_rev @ wi_b.t() + b_b]
+                             ).transpose(1, 2)                 # (2,T,B,4H)
+            m = torch.stack([mask, m_rev]).transpose(1, 2).to(dt)  # (2,T,B)
+            zeros = torch.zeros(2, batch, feats, dtype=dt, device=x.device)
+            h_seq, c_seq = bilstm_scan_fn(xw, m, zeros, zeros,
+                                          (wh_f.t(), wh_b.t()))
+            out = (h_seq * m[..., None]).transpose(1, 2)      # (2,B,T,H)
+            ctx = torch.cat([out[0], out[1].flip(1)], dim=-1)
+            return ctx, (torch.cat([h_seq[1, -1], h_seq[0, -1]], -1),
+                         torch.cat([c_seq[1, -1], c_seq[0, -1]], -1))
 
         (wi_f, wh_f, b_f), (wi_b, wh_b, b_b) = self._dir(""), self._dir(
             "_reverse")

@@ -1,8 +1,13 @@
 from dasa_tpu_torch.ops.adain import adain_channel_gate  # noqa: F401
-from dasa_tpu_torch.ops.lstm import lstm_scan, lstm_scan_bwd  # noqa: F401
+from dasa_tpu_torch.ops.lstm import (  # noqa: F401
+    bilstm_scan,
+    lstm_scan,
+    lstm_scan_bwd,
+)
 from dasa_tpu_torch.ops.shift_attention import shift_attend  # noqa: F401
 
-_WRAPPERS = (lstm_scan, lstm_scan_bwd, adain_channel_gate, shift_attend)
+_WRAPPERS = (lstm_scan, bilstm_scan, lstm_scan_bwd, adain_channel_gate,
+             shift_attend)
 
 
 def kernel_launches() -> dict:

@@ -35,15 +35,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (pointers, ints, then the stream)
 ENTRY_POINTS = {
-    "dasa_lstm_fwd": [_P] * 9 + [_I] * 5 + [_P],
+    "dasa_lstm_fwd": [_P] * 11 + [_I] * 5 + [_P],
+    "dasa_lstm_fwd_smem": [_I] * 4,
     "dasa_lstm_bwd": [_P] * 11 + [_I] * 5 + [_P],
     "dasa_lstm_bwd_smem": [_I] * 5,
     "dasa_adain_gate": [_P] * 6 + [_I] * 4 + [_P],
     "dasa_adain_gate_smem": [_I],
-    "dasa_shift_attend": [_P] * 8 + [_I] * 7 + [_P],
+    "dasa_shift_attend": [_P] * 9 + [_I] * 6 + [_P],
+    "dasa_shift_attend_smem": [_I] * 5,
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_counters: dict = {}
 
 
 def _nvcc() -> str:
@@ -141,6 +144,18 @@ def check(rc: int, name: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def counters(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` u32 readiness counters, 128 bytes apart, zero between launches:
+    made once per device and stream, and left at zero by every kernel that
+    uses them (their launches on one stream run one after another)."""
+    key = (t.device, stream_of(t), n)
+    buf = _counters.get(key)
+    if buf is None:
+        buf = torch.zeros(n * 32, dtype=torch.int32, device=t.device)
+        _counters[key] = buf
+    return buf
 
 
 def sm_count(t: torch.Tensor) -> int:

@@ -1,26 +1,26 @@
 """Masked multi-token LSTM recurrence: CUDA kernels, plain versions and
-the autograd Function around them.
+the autograd Functions around them.
 
 Ports of the TPU kernels ``dasa_tpu/ops/lstm.py:_fwd_kernel`` (K1, via
 ``_fwd_call``) and ``_bwd_kernel`` (K2, via ``_bwd_call``).  The
 DicEncoder re-runs its top BiLSTM every policy step, two directions of 80
-dependent tokens each.  The forward kernel (``csrc/lstm_fwd.cu``) keeps
-each CTA's slice of the recurrence weights in shared memory for the whole
-token loop, with a grid barrier per token, and can emit the gate
-activations; the backward kernel (``csrc/lstm_bwd.cu``) consumes them,
-walking the tokens in reverse with its slice of the weights resident
-too, but exchanging each token's dgates through an exchange copy and
-per-chunk readiness counters instead of a grid barrier.  The source
-notes say what bounds each and how the design answers;
-:func:`bwd_plan` is the backward's launch plan, in Python so that the
-CPU tests reach it.
+dependent tokens each.  Both kernels keep each CTA's slice of the
+recurrence weights in shared memory for the whole token loop and pass
+each token's row (h forward, dgates backward) between CTAs through an
+exchange copy and readiness counters; the forward
+(``csrc/lstm_fwd.cu``) can emit the gate activations, which the backward
+(``csrc/lstm_bwd.cu``) consumes, and runs one or both directions of a
+BiLSTM in one launch.  The source notes say what bounds each and how the
+design answers; :func:`fwd_plan` and :func:`bwd_plan` are their launch
+plans, in Python so that the CPU tests reach them.
 
-:class:`LstmScanFn` is what the modules call: K1 forward, K2 plus one
-``torch.matmul`` for dWh backward, exactly as the JAX package's custom
-VJP (``_lstm_fwd`` / ``_lstm_bwd``).  The raw entry points
-:func:`lstm_scan` and :func:`lstm_scan_bwd` return tensors without a
-``grad_fn``, so they refuse inputs that require grad while grad mode is
-on.
+:class:`BiLstmScanFn` is what the BiLSTM calls: K1 forward for both
+directions at once, K2 per direction plus one batched product for dWh
+backward, as the JAX package's custom VJP (``_lstm_fwd`` / ``_lstm_bwd``)
+does per direction; :class:`LstmScanFn` is the same for one direction.
+The raw entry points :func:`lstm_scan`, :func:`bilstm_scan` and
+:func:`lstm_scan_bwd` return tensors without a ``grad_fn``, so they
+refuse inputs that require grad while grad mode is on.
 """
 
 from __future__ import annotations
@@ -99,6 +99,62 @@ def bwd_plan(t_len: int, b: int, hd: int, n_sm: int) -> BwdPlan:
     return BwdPlan(ctas, kc, nchunks, stages, smem)
 
 
+# csrc/lstm_fwd.cu: threads (8 consumer warps + a producer warp), row
+# padding of the resident Wh rows, batch rows (two m16 tiles), and the
+# units a CTA may own (the fewest that fit the SMs)
+FWD_THREADS = 288
+FWD_PAD = 8
+FWD_MAX_B = 32
+FWD_UNITS = (8, 16)
+
+
+class FwdPlan(NamedTuple):
+    units: int            # hidden units per CTA
+    ctas: int             # dirs * H / units
+    smem: int             # dynamic shared memory per CTA, bytes
+
+
+def _fwd_smem(t_len: int, b: int, hd: int, units: int) -> int:
+    """Bytes of shared memory of ``lstm_fwd.cu:fwd_layout``."""
+    total = _align(4 * units * (hd + FWD_PAD) * 2)        # Wh rows
+    total = _align(total + FWD_MAX_B * hd * 2)             # the h row
+    total = _align(total + 2 * b * 4 * units * 2)          # xw prefetch
+    total = _align(total + t_len * b * 2)                  # mask
+    total = _align(total + (32 // units) * b * (4 * units + 4) * 4)  # sums
+    return _align(total + 2 * 8)                           # mbarriers
+
+
+def fwd_plan(t_len: int, b: int, hd: int, n_sm: int, dirs: int = 1
+             ) -> FwdPlan:
+    """Launch plan of ``csrc/lstm_fwd.cu`` for ``dirs`` independent
+    recurrences in one launch; raises on shapes it cannot take, naming the
+    constraint.  Every CTA must be resident at once (the launch is
+    cooperative), so the plan takes the fewest units per CTA (8, else 16)
+    that keep the grid within one CTA per SM."""
+    if hd % 64:
+        raise ValueError(f"lstm_scan: H={hd} must be a multiple of 64 "
+                         "(k ranges of the 8 warps, swizzle groups of h)")
+    if not 1 <= b <= FWD_MAX_B:
+        raise ValueError(f"lstm_scan: B={b} must lie in 1..{FWD_MAX_B} "
+                         "(two m16 tiles of batch rows)")
+    if dirs not in (1, 2):
+        raise ValueError(f"lstm_scan: {dirs} directions; one or two")
+    units = next((u for u in FWD_UNITS if dirs * hd // u <= n_sm), None)
+    if units is None:
+        raise ValueError(
+            f"lstm_scan: {dirs} direction(s) of H={hd} need "
+            f"{dirs * hd // FWD_UNITS[-1]} CTAs resident at once "
+            f"({FWD_UNITS[-1]} units each), more than the {n_sm} SMs")
+    smem = _fwd_smem(t_len, b, hd, units)
+    if smem > _build.MAX_SMEM:
+        raise ValueError(
+            f"lstm_scan: T={t_len}, B={b}, H={hd} needs {smem} bytes of "
+            f"shared memory per CTA, more than the {_build.MAX_SMEM} a block "
+            f"may use (Wh rows {8 * units} H, the h row {2 * FWD_MAX_B} H, "
+            "the mask 2 T B)")
+    return FwdPlan(units, dirs * hd // units, smem)
+
+
 def _fwd_ref(xw, mask, h0, c0, wh):
     """The plain recurrence; returns (h_seq, c_seq, acts)."""
     hd = h0.shape[-1]
@@ -171,32 +227,38 @@ def lstm_scan_bwd_ref(acts, c_prev, g_h, g_c, mask, wh):
     return torch.stack(dxw[::-1]), dh, dc
 
 
-def _units_per_cta(hidden: int, n_sm: int, least: int) -> int:
-    """Hidden units per CTA: the fewest (at least ``least``) that put the
-    whole grid on the SMs at once."""
-    units = least
-    while hidden % units or hidden // units > n_sm:
-        units *= 2
-        if units > hidden:
-            raise ValueError(f"lstm_scan: no CTA split of H={hidden} fits "
-                             f"{n_sm} SMs")
-    return units
-
-
-def _fwd_smem(b: int, hd: int, units: int, ksplit: int) -> int:
-    """Bytes of shared memory of ``lstm_fwd.cu:lstm_layout``."""
-    ld, mp, n = hd + 8, (b + 15) // 16 * 16, 4 * units
-    total = _align(n * ld * 2)
-    total = _align(total + mp * ld * 2)
-    total = _align(total + ksplit * mp * n * 4)
-    return _align(_align(total + b * units * 4) + b * units * 4)
-
-
 def _check_shapes(name, t_len, b, hd, **shapes):
     for key, (got, want) in shapes.items():
         if tuple(got) != want:
             raise ValueError(f"{name}: {key} has shape {tuple(got)}, "
                              f"expected {want} (T={t_len}, B={b}, H={hd})")
+
+
+def _fwd_launch(xw, mask, h0, c0, wts, with_acts):
+    """Launch ``csrc/lstm_fwd.cu`` for ``len(wts)`` directions stacked on
+    the leading axis of xw (dirs, T, B, 4H), mask (dirs, T, B) and h0, c0
+    (dirs, B, H); ``wts`` holds each direction's contiguous (4H, H) Wh^T."""
+    dirs, t_len, b, _g4 = xw.shape
+    hd = h0.shape[-1]
+    _build.require_cuda("lstm_scan", xw=xw, mask=mask, h0=h0, c0=c0,
+                        **{f"wh[{d}]": w for d, w in enumerate(wts)})
+    plan = fwd_plan(t_len, b, hd, _build.sm_count(xw), dirs)
+    lib = _build.library()
+    h_seq = torch.empty(dirs, t_len, b, hd, dtype=xw.dtype, device=xw.device)
+    c_seq = torch.empty_like(h_seq)
+    acts = torch.empty_like(xw) if with_acts else None
+    xr = torch.empty(dirs, t_len + 1, b, hd, dtype=xw.dtype,
+                     device=xw.device)  # the kernel's exchange copy of h
+    ready = torch.empty(dirs * 32, dtype=torch.int32,
+                        device=xw.device)  # a counter per direction
+    rc = lib.dasa_lstm_fwd(
+        xw.data_ptr(), mask.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+        wts[0].data_ptr(), wts[-1].data_ptr(), h_seq.data_ptr(),
+        c_seq.data_ptr(), None if acts is None else acts.data_ptr(),
+        xr.data_ptr(), ready.data_ptr(), t_len, b, hd, plan.units, dirs,
+        _build.stream_of(xw))
+    _build.check(rc, "lstm_scan")
+    return h_seq, c_seq, acts
 
 
 def lstm_scan(xw, mask, h0, c0, wh, with_acts: bool = False):
@@ -217,33 +279,13 @@ def lstm_scan(xw, mask, h0, c0, wh, with_acts: bool = False):
     _check_shapes("lstm_scan", t_len, b, hd, xw=(xw.shape, (t_len, b, 4 * hd)),
                   mask=(mask.shape, (t_len, b)), h0=(h0.shape, (b, hd)),
                   c0=(c0.shape, (b, hd)), wh=(wh.shape, (hd, 4 * hd)))
-    if hd % 16:
-        raise ValueError(f"lstm_scan: H={hd} must be a multiple of 16")
-    xw, mask, h0, c0 = (x.contiguous() for x in (xw, mask, h0, c0))
-    wt = wh.t().contiguous()
-    _build.require_cuda("lstm_scan", xw=xw, mask=mask, h0=h0, c0=c0, wh=wt)
-    units = _units_per_cta(hd, _build.sm_count(xw), 4)
-    tiles = ((b + 15) // 16) * (4 * units // 16)
-    ksplit = max(1, min(8 // tiles, hd // 16))
-    smem = _fwd_smem(b, hd, units, ksplit)
-    if smem > _build.MAX_SMEM:
-        raise ValueError(
-            f"lstm_scan: B={b}, H={hd} needs {smem} bytes of shared memory "
-            f"per CTA, more than the {_build.MAX_SMEM} a block may use (the "
-            "h block grows with B)")
-    lib = _build.library()
-    h_seq = torch.empty(t_len, b, hd, dtype=xw.dtype, device=xw.device)
-    c_seq = torch.empty_like(h_seq)
-    acts = torch.empty_like(xw) if with_acts else None
-    barrier = torch.empty(1, dtype=torch.int32, device=xw.device)
-    rc = lib.dasa_lstm_fwd(
-        xw.data_ptr(), mask.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-        wt.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr(),
-        None if acts is None else acts.data_ptr(), barrier.data_ptr(),
-        t_len, b, hd, units, ksplit, _build.stream_of(xw))
-    _build.check(rc, "lstm_scan")
+    h_seq, c_seq, acts = _fwd_launch(
+        *(x.contiguous()[None] for x in (xw, mask, h0, c0)),
+        [wh.t().contiguous()], with_acts)
     lstm_scan.launches += 1
-    return (h_seq, c_seq, acts) if with_acts else (h_seq, c_seq)
+    if with_acts:
+        return h_seq[0], c_seq[0], acts[0]
+    return h_seq[0], c_seq[0]
 
 
 lstm_scan.launches = 0
@@ -323,3 +365,81 @@ class LstmScanFn(torch.autograd.Function):
 def lstm_scan_fn(xw, mask, h0, c0, wh) -> Tuple[torch.Tensor, torch.Tensor]:
     """``LstmScanFn.apply``: the masked recurrence with gradients."""
     return LstmScanFn.apply(xw, mask, h0, c0, wh)
+
+
+def bilstm_scan_ref(xw, mask, h0, c0, wh):
+    """Plain version of :func:`bilstm_scan` (``wh`` stacked or a pair):
+    :func:`_fwd_ref` for each direction; returns stacked (h_seq, c_seq,
+    acts)."""
+    outs = [_fwd_ref(xw[d], mask[d], h0[d], c0[d], wh[d]) for d in range(2)]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def bilstm_scan(xw, mask, h0, c0, wh, with_acts: bool = False):
+    """Both directions of a BiLSTM in one launch: two independent masked
+    recurrences (each :func:`lstm_scan`'s contract) stacked on a leading
+    axis of 2 -- xw (2, T, B, 4H), mask (2, T, B), h0 and c0 (2, B, H),
+    and wh (2, H, 4H), or a pair of (H, 4H) tensors (the two directions'
+    weights without a stacked copy).  Returns stacked (h_seq, c_seq)
+    (2, T, B, H), plus the gate activations (2, T, B, 4H) when
+    ``with_acts``.  CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/lstm_fwd.cu`` with each direction on its own CTAs, or raise.
+    Each direction's wh may be the transposed view of a contiguous
+    (4H, H) tensor, read without a copy."""
+    _build.refuse_grad("bilstm_scan", xw, mask, h0, c0, *wh)
+    if xw.device.type == "cpu":
+        out = bilstm_scan_ref(xw, mask, h0, c0, wh)
+        return out if with_acts else out[:2]
+    _dirs, t_len, b, _g4 = xw.shape
+    hd = h0.shape[-1]
+    _check_shapes("bilstm_scan", t_len, b, hd,
+                  xw=(xw.shape, (2, t_len, b, 4 * hd)),
+                  mask=(mask.shape, (2, t_len, b)),
+                  h0=(h0.shape, (2, b, hd)), c0=(c0.shape, (2, b, hd)),
+                  wh=((len(wh), *wh[0].shape, *wh[-1].shape),
+                      (2, hd, 4 * hd, hd, 4 * hd)))
+    out = _fwd_launch(*(x.contiguous() for x in (xw, mask, h0, c0)),
+                      [wh[d].t().contiguous() for d in range(2)], with_acts)
+    bilstm_scan.launches += 1
+    return out if with_acts else out[:2]
+
+
+bilstm_scan.launches = 0
+
+
+class BiLstmScanFn(torch.autograd.Function):
+    """Differentiable :func:`bilstm_scan`, the directions' weights wh_f and
+    wh_b (H, 4H) passed apart: both directions forward in one launch (with
+    the gate activations); backward, the backward kernel once per
+    direction plus one batched product for both dWh, as
+    :class:`LstmScanFn` does for one."""
+
+    @staticmethod
+    def forward(ctx, xw, mask, h0, c0, wh_f, wh_b):
+        h_seq, c_seq, acts = bilstm_scan(xw, mask, h0, c0, (wh_f, wh_b),
+                                         with_acts=True)
+        ctx.save_for_backward(mask, h0, c0, wh_f, wh_b, h_seq, c_seq, acts)
+        return h_seq, c_seq
+
+    @staticmethod
+    def backward(ctx, g_h, g_c):
+        mask, h0, c0, wh_f, wh_b, h_seq, c_seq, acts = ctx.saved_tensors
+        dt = acts.dtype
+        c_prev = torch.cat([c0[:, None].to(dt), c_seq[:, :-1]], 1)
+        g_h, g_c = g_h.to(dt), g_c.to(dt)
+        dxw, dh0, dc0 = (torch.stack(x) for x in zip(*(
+            lstm_scan_bwd(acts[d], c_prev[d], g_h[d], g_c[d], mask[d], w)
+            for d, w in enumerate((wh_f, wh_b)))))
+        h_prev = torch.cat([h0[:, None].to(dt), h_seq[:, :-1]], 1)
+        rows = h_prev.shape[1] * h_prev.shape[2]
+        dwh = torch.bmm(h_prev.reshape(2, rows, -1).transpose(1, 2),
+                        dxw.reshape(2, rows, -1))
+        return (dxw, torch.zeros_like(mask), dh0.to(h0.dtype),
+                dc0.to(c0.dtype), dwh[0].to(wh_f.dtype),
+                dwh[1].to(wh_b.dtype))
+
+
+def bilstm_scan_fn(xw, mask, h0, c0, wh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``BiLstmScanFn.apply``: both directions with gradients; ``wh`` is a
+    (2, H, 4H) tensor or a pair of (H, 4H) tensors."""
+    return BiLstmScanFn.apply(xw, mask, h0, c0, wh[0], wh[1])

@@ -23,15 +23,22 @@ from dasa_tpu_torch.ops.lstm import (
     LstmScanFn,
     _bwd_smem,
     _fwd_ref,
+    _fwd_smem,
+    bilstm_scan,
+    bilstm_scan_fn,
+    bilstm_scan_ref,
     bwd_plan,
+    fwd_plan,
     lstm_scan,
     lstm_scan_bwd,
     lstm_scan_bwd_ref,
     lstm_scan_ref,
 )
 from dasa_tpu_torch.ops.shift_attention import (
+    _shift_smem,
     shift_attend,
     shift_attend_ref,
+    shift_plan,
 )
 
 
@@ -95,6 +102,73 @@ def test_lstm_bwd_kernel_matches_plain_on_card(cuda, b, h):
         _rel_close(got, ref, 2e-2)
 
 
+def _fwd_inputs(seed, t, b, h, dirs):
+    """Stacked inputs of ``dirs`` directions: ragged masks, the second
+    direction's flipped (its masked tokens first), and with B >= 2 a row
+    masked at every token."""
+    xw, mask, h0, c0, wh = (np.stack(a) for a in zip(
+        *(_lstm_inputs(seed + d, t, b, h) for d in range(dirs))))
+    if dirs == 2:
+        mask[1] = mask[1, ::-1]
+    if b >= 2:
+        mask[:, :, 1] = 0.0
+    wt = np.ascontiguousarray(np.swapaxes(wh, 1, 2))  # torch weight_hh
+    to = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+          .bfloat16())
+    return to(xw), to(mask), to(h0), to(c0), to(wt).transpose(1, 2)
+
+
+def _check_fwd(got, ref):
+    """bf16 outputs after a chain of T tokens: a few ulps (phase 2's
+    tolerances of chip_smoke.py)."""
+    for name, g, r, rtol in zip(("h_seq", "c_seq", "acts"), got, ref,
+                                (0.0, 1e-2, 0.0)):
+        g, r = g.float(), r.float()
+        assert bool(g.isfinite().all()), name
+        err = float((g - r).abs().max())
+        assert err <= 2e-2 + rtol * float(r.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 16])
+@pytest.mark.parametrize("b,h", [(3, 64), (20, 256), (20, 1024), (32, 1024)])
+def test_lstm_fwd_one_direction_matches_plain_on_card(cuda, b, h, t):
+    xw, mask, h0, c0, wh = (x[0] for x in _fwd_inputs(3, t, b, h, 1))
+    ref = _fwd_ref(xw, mask, h0, c0, wh)
+    _check_fwd(lstm_scan(xw, mask, h0, c0, wh, with_acts=True), ref)
+    _check_fwd(lstm_scan(xw, mask, h0, c0, wh), ref[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 16])
+@pytest.mark.parametrize("b,h", [(3, 64), (20, 256), (20, 1024), (32, 1024)])
+def test_lstm_fwd_two_directions_match_plain_on_card(cuda, b, h, t):
+    args = _fwd_inputs(4, t, b, h, 2)
+    ref = bilstm_scan_ref(*args)
+    _check_fwd(bilstm_scan(*args, with_acts=True), ref)
+    _check_fwd(bilstm_scan(*args), ref[:2])
+    # each direction as its own one-direction launch gives the same
+    for d in range(2):
+        _check_fwd(lstm_scan(*(x[d].clone() for x in args), with_acts=True),
+                   tuple(r[d] for r in ref))
+
+
+@pytest.mark.cuda
+def test_bilstm_scan_fn_grads_track_plain_autograd_on_card(cuda):
+    xw, mask, h0, c0, wh = _fwd_inputs(5, 16, 20, 256, 2)
+    g = torch.Generator().manual_seed(1)
+    cots = tuple((torch.randn(2, 16, 20, 256, generator=g) * 0.1).cuda()
+                 .bfloat16() for _ in range(2))
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in (xw, h0, c0, wh)]
+        out = fn(leaves[0], mask, *leaves[1:])
+        return torch.autograd.grad(out[:2], leaves, cots)
+
+    for got, ref in zip(grads(bilstm_scan_fn), grads(bilstm_scan_ref)):
+        _rel_close(got, ref, 5e-2)
+
+
 @pytest.mark.cuda
 def test_launch_plans_match_the_kernels_layouts_on_card(cuda):
     lib = _build.library()
@@ -106,6 +180,16 @@ def test_launch_plans_match_the_kernels_layouts_on_card(cuda):
         plan = adain_plan(n, 2048, 2048, 132)
         assert plan.bn == bn
         assert lib.dasa_adain_gate_smem(bn) == plan.smem
+    for t, b, h, dirs in ((1, 3, 64, 1), (80, 20, 1024, 1),
+                          (80, 20, 1024, 2), (80, 32, 1024, 2),
+                          (16, 20, 256, 2)):
+        p = fwd_plan(t, b, h, 132, dirs)
+        assert lib.dasa_lstm_fwd_smem(t, b, h, p.units) == \
+            _fwd_smem(t, b, h, p.units) == p.smem
+    for b, ks in ((1, 3), (20, 5), (33, 7)):
+        p = shift_plan(b, 36, 2176, 1024, ks, 132)
+        assert lib.dasa_shift_attend_smem(b, 36, 1024, ks, p.sw) == \
+            _shift_smem(b, 36, 1024, ks, p.sw) == p.smem
 
 
 @pytest.mark.cuda
@@ -144,6 +228,24 @@ def test_adain_kernel_matches_plain_on_card(cuda, n, c, with_noise):
         adain_channel_gate(f, d, w, b, noise).float(),
         adain_channel_gate_ref(f, d, w, b, noise).float(),
         atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ks", [(20, 3), (20, 5), (20, 7), (1, 5),
+                                  (33, 5)])
+def test_shift_kernel_matches_plain_at_headline_width_on_card(cuda, b, ks):
+    g = torch.Generator().manual_seed(b * 10 + ks)
+    h = (torch.randn(b, 1024, generator=g) * 0.5).cuda().bfloat16()
+    ctx = torch.randn(b, 36, 2176, generator=g).relu().cuda().bfloat16()
+    w_in = (torch.randn(2176, 1024, generator=g) / 32).cuda().bfloat16().t()
+    w_s = (torch.randn(ks, 1024, generator=g) / 32).cuda().bfloat16().t()
+    b_s = (torch.randn(ks, generator=g) * 0.1).cuda().bfloat16()
+    out, logit = shift_attend(h, ctx, w_in, w_s, b_s)
+    r_out, r_logit = shift_attend_ref(h, ctx, w_in, w_s, b_s)
+    # logits: f32 sums of 2176 products in another order; out: bf16
+    torch.testing.assert_close(logit, r_logit, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(out.float(), r_out.float(), atol=1e-2,
+                               rtol=1e-2)
 
 
 @pytest.mark.cuda

@@ -22,6 +22,8 @@ from dasa_tpu.ops.shift_attention import shift_attend as jax_shift_attend
 from dasa_tpu_torch.ops.adain import AdainGateFn, adain_channel_gate
 from dasa_tpu_torch.ops.lstm import (
     LstmScanFn,
+    bilstm_scan,
+    bilstm_scan_fn,
     lstm_scan,
     lstm_scan_bwd,
     lstm_scan_bwd_ref,
@@ -150,6 +152,39 @@ def test_lstm_scan_fn_grads_match_jax_vjp(seed, t, b, h):
     _close_all(t_grads, j_grads, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("seed,t,b,h", [(11, 7, 3, 8), (12, 12, 5, 16)])
+def test_bilstm_scan_fn_matches_two_jax_lstm_scans(seed, t, b, h):
+    """The two-direction entry and BiLstmScanFn (through their plain
+    versions on the CPU) against two calls of the Pallas lstm_scan in
+    interpret mode, one per direction: values, and gradients against
+    jax.vjp.  The second direction's mask is the first's flipped in time
+    (its masked tokens come first, as the BiLSTM's reverse direction)."""
+    fwd, bwd = _lstm_inputs(seed, t, b, h), _lstm_inputs(seed + 1, t, b, h)
+    xw, mask, h0, c0, wh = (np.stack(pair) for pair in zip(fwd, bwd))
+    mask[1] = mask[1, ::-1].copy()
+    rng = np.random.default_rng(seed + 20)
+    cots = (rng.standard_normal((2, t, b, h)).astype(np.float32),
+            rng.standard_normal((2, t, b, h)).astype(np.float32))
+
+    def jax_pair(x, h_, c_, w):
+        outs = [jax_lstm_scan(x[d], jnp.asarray(mask[d]), h_[d], c_[d], w[d],
+                              True) for d in range(2)]
+        return tuple(jnp.stack(o) for o in zip(*outs))
+
+    j_out, j_grads, t_out, t_grads = _vjp_pair(
+        jax_pair,
+        lambda x, h_, c_, w: bilstm_scan_fn(x, torch.from_numpy(mask),
+                                            h_, c_, w),
+        (xw, h0, c0, wh), cots)
+    _close_all(t_out, j_out, rtol=1e-5, atol=1e-6)
+    _close_all(t_grads, j_grads, rtol=1e-4, atol=1e-5)
+    args = [torch.from_numpy(a) for a in (xw, mask, h0, c0, wh)]
+    _close_all(bilstm_scan(*args), j_out, rtol=1e-5, atol=1e-6)
+    # the two directions' weights as a pair instead of a stacked tensor
+    args[-1] = tuple(args[-1])
+    _close_all(bilstm_scan(*args), j_out, rtol=1e-5, atol=1e-6)
+
+
 def test_lstm_scan_bwd_ref_matches_bwd_call():
     """The plain version of the backward kernel against the Pallas
     ``_bwd_call`` in interpret mode, on the forward's own activations."""
@@ -217,6 +252,9 @@ def test_raw_entry_points_refuse_inputs_that_require_grad():
     w_in = torch.zeros(8, 8, requires_grad=True)
     calls = (
         lambda w: lstm_scan(xw, mask, h0, c0, w),
+        lambda w: bilstm_scan(xw[None].expand(2, -1, -1, -1), mask.expand(
+            2, -1, -1), h0.expand(2, -1, -1), c0.expand(2, -1, -1),
+            w[None].expand(2, -1, -1)),
         lambda w: lstm_scan_bwd(torch.zeros(4, 2, 32), torch.zeros(4, 2, 8),
                                 torch.zeros(4, 2, 8), torch.zeros(4, 2, 8),
                                 mask, w),

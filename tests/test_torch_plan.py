@@ -1,8 +1,10 @@
 """Host-side launch plans of the port's redesigned kernels, on the CPU.
 
-``ops/adain.py:adain_plan`` (K3, ``csrc/adain_gate.cu``) and
-``ops/lstm.py:bwd_plan`` (K2, ``csrc/lstm_bwd.cu``) decide tiles, chunks,
-ring stages and shared memory in Python, so that these tests reach them
+``ops/adain.py:adain_plan`` (K3, ``csrc/adain_gate.cu``),
+``ops/lstm.py:bwd_plan`` (K2, ``csrc/lstm_bwd.cu``), ``ops/lstm.py:
+fwd_plan`` (K1, ``csrc/lstm_fwd.cu``) and ``ops/shift_attention.py:
+shift_plan`` (K4, ``csrc/shift_attend.cu``) decide tiles, chunks, ring
+stages and shared memory in Python, so that these tests reach them
 without a card: the main path's shapes plan within a block's shared
 memory, the plans use the constants the CUDA sources declare, and shapes
 the kernels cannot take raise with the constraint named.  On the card,
@@ -29,8 +31,21 @@ from dasa_tpu_torch.ops.lstm import (
     BWD_STAGES,
     BWD_THREADS,
     BWD_UNITS,
+    FWD_MAX_B,
+    FWD_PAD,
+    FWD_THREADS,
+    FWD_UNITS,
     _bwd_smem,
+    _fwd_smem,
     bwd_plan,
+    fwd_plan,
+)
+from dasa_tpu_torch.ops.shift_attention import (
+    SHIFT_MAX_B,
+    SHIFT_PAD,
+    SHIFT_THREADS,
+    _shift_smem,
+    shift_plan,
 )
 
 CSRC = Path(_build.CSRC)
@@ -134,3 +149,88 @@ def test_lstm_bwd_plan_keeps_the_deepest_ring_that_fits(t, b):
     assert plan.smem <= _build.MAX_SMEM
     assert (plan.stages == min(BWD_STAGES, plan.nchunks) or _bwd_smem(
         t, b, 1024, plan.kc, plan.stages + 1) > _build.MAX_SMEM)
+
+
+@pytest.mark.parametrize("b", [20, 32])
+@pytest.mark.parametrize("dirs,units,ctas", [(1, 8, 128), (2, 16, 128)])
+def test_lstm_fwd_headline_plans_fit(b, dirs, units, ctas):
+    """One direction takes 8 units a CTA (128 CTAs); both directions in
+    one launch take 16 (64 CTAs each, 128 on 132 SMs)."""
+    plan = fwd_plan(80, b, 1024, H100_SMS, dirs)
+    assert (plan.units, plan.ctas) == (units, ctas)
+    assert plan.smem == _fwd_smem(80, b, 1024, units)
+    assert plan.smem <= _build.MAX_SMEM
+
+
+@pytest.mark.parametrize("n_sm,dirs,units", [
+    (132, 1, 8), (132, 2, 16), (128, 2, 16), (127, 1, 16), (64, 1, 16)])
+def test_lstm_fwd_plan_picks_the_grid_from_the_sm_count(n_sm, dirs, units):
+    plan = fwd_plan(80, 20, 1024, n_sm, dirs)
+    assert plan.units == units and plan.ctas == dirs * 1024 // units
+    assert plan.ctas <= n_sm
+
+
+@pytest.mark.parametrize("t,b,h,dirs", [(1, 3, 64, 1), (16, 20, 256, 2),
+                                        (1, 32, 1024, 2), (400, 32, 1024, 1)])
+def test_small_and_long_fwd_shapes_plan(t, b, h, dirs):
+    """The card tests' shapes launch, and a long sequence still fits."""
+    plan = fwd_plan(t, b, h, H100_SMS, dirs)
+    assert plan.smem == _fwd_smem(t, b, h, plan.units) <= _build.MAX_SMEM
+    assert plan.ctas == dirs * h // plan.units
+
+
+@pytest.mark.parametrize("args,match", [
+    ((80, 20, 1000, H100_SMS, 1), "multiple of 64"),
+    ((80, 33, 1024, H100_SMS, 1), "1..32"),
+    ((80, 20, 1024, H100_SMS, 3), "one or two"),
+    ((80, 20, 2048, H100_SMS, 2), "SMs"),
+    ((80, 20, 1024, 32, 2), "SMs"),
+    ((2000, 32, 1024, H100_SMS, 2), "shared memory"),
+])
+def test_lstm_fwd_plan_refuses_shapes_naming_the_constraint(args, match):
+    with pytest.raises(ValueError, match=match):
+        fwd_plan(*args)
+
+
+def test_fwd_and_shift_plans_use_the_constants_of_the_cuda_sources():
+    _text, k1 = _constants("lstm_fwd.cu")
+    assert k1["kThreads"] == FWD_THREADS and k1["kPad"] == FWD_PAD
+    assert k1["kMaxB"] == FWD_MAX_B
+    text = (CSRC / "lstm_fwd.cu").read_text()
+    assert re.search(r"U != (\d+) && U != (\d+)", text).groups() == tuple(
+        str(u) for u in FWD_UNITS)
+    _text, k4 = _constants("shift_attend.cu")
+    assert k4["kThreads"] == SHIFT_THREADS and k4["kPad"] == SHIFT_PAD
+    assert k4["kMaxNT"] * 8 == SHIFT_MAX_B
+
+
+@pytest.mark.parametrize("b,ks", [(20, 5), (32, 5), (1, 3), (33, 7)])
+def test_shift_headline_plans_fit(b, ks):
+    """C = 2176 over 132 SMs: slices of 24 columns, 91 CTAs."""
+    plan = shift_plan(b, 36, 2176, 1024, ks, H100_SMS)
+    assert (plan.sw, plan.ctas) == (24, 91)
+    assert plan.smem == _shift_smem(b, 36, 1024, ks, 24) <= _build.MAX_SMEM
+
+
+@pytest.mark.parametrize("c,n_sm,sw", [(2176, 132, 24), (1024, 64, 16),
+                                       (136, 132, 8), (2048, 128, 16)])
+def test_shift_plan_takes_the_narrowest_slice_within_the_sms(c, n_sm, sw):
+    plan = shift_plan(20, 36, c, 1024, 5, n_sm)
+    assert plan.sw == sw and plan.sw % 8 == 0
+    assert plan.ctas == -(-c // sw) <= n_sm
+    assert sw == 8 or -(-c // (sw - 8)) > n_sm
+
+
+@pytest.mark.parametrize("args,match", [
+    ((20, 30, 2176, 1024, 5), "multiple of 12"),
+    ((20, 72, 2176, 1024, 5), "multiple of 12"),
+    ((20, 36, 2176, 1024, 33), "1..32"),
+    ((20, 36, 2170, 1024, 5), "multiple of 8"),
+    ((20, 36, 2176, 1000, 5), "of 16"),
+    ((65, 36, 2176, 1024, 5), "1..64"),
+    ((64, 36, 2176, 1024, 5), "shared memory"),
+    ((20, 36, 40000, 1024, 5), "more than the 256 weight rows"),
+])
+def test_shift_plan_refuses_shapes_naming_the_constraint(args, match):
+    with pytest.raises(ValueError, match=match):
+        shift_plan(*args, H100_SMS)

@@ -5,13 +5,17 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py            # every phase, as the check runs it
     python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,kernels,stream,stream-eval
 
 Phases:
   1. build — print the card's name and power limit, build the CUDA
      kernels from ``dasa_tpu_torch/csrc`` and print the build time and
      the compiler's register report.
   2. kernels — each kernel against its plain PyTorch version on the card
-     at the headline shapes, with the tolerance stated; times (CUDA
+     at the headline shapes, with the tolerance stated, for the episodic
+     batch (B = 20) and again for the stream window's 2B = 40 slot rows
+     (rows named ``[B40]``: K1 both directions with and without the gate
+     activations, K2, K3 on 1440 / 640 rows, K4); times (CUDA
      events, median) of kernel, plain version and one yardstick PyTorch
      call, and the kernel / yardstick ratio, beside the least time the
      card could take.  Also the device time of kernel and yardstick
@@ -21,7 +25,8 @@ Phases:
      attention's slices) and the LSTM kernels' time per token.  The LSTM
      forward is timed for one direction, for both directions in one
      launch with and without the gate activations, and as two
-     one-direction launches.
+     one-direction launches (at B = 40 both directions take one launch
+     each).
   3. main — the launch counters set to 0, ``valid()`` (argmax evaluation
      of val_seen and val_unseen) at the full headline DASA width over a
      synthetic world, the counters read back; SR/SPL/NE per split,
@@ -41,11 +46,25 @@ Phases:
      dropout off, one fused argmax pass with ``train_ml=0.2``: the loss
      within the stated tolerance, the cosine of the flattened gradients
      above the stated floor, and the share of equal trajectories.
-  profile (only when named in --phases) — one eval batch and one training
-     iteration at headline width under torch.profiler, each after a
-     warm-up: device time by kernel, the device's busy share of the wall.
+  7. stream — the launch counters set to 0, ``train()`` under
+     ``rollout_mode="stream"`` (8 windows of 40 slots x 35 steps, one
+     optimizer step each) at headline width under ``use_pallas="always"``,
+     the counters read back.  Fails unless every kernel launched, every
+     loss is finite, the parameters moved and no episode was taken twice
+     (the windows' slot-time grids, kept on the card); prints the starved
+     share of slot-steps, seconds a window, training agent-steps/s, the
+     host phases and the peak memory.
+  8. stream-eval — ``valid()`` under the stream regime with phase 3's
+     weights: every instr_id of a split covered once (phase 3 is held to
+     the same), SR/SPL/NE, episodes/s, the agent-steps/s the slots walked
+     and the share of trajectories equal to phase 3's.
+  profile (only when named in --phases) — one eval batch, one training
+     iteration and one stream window at headline width under
+     torch.profiler, each after a warm-up: device time by kernel, the
+     device's busy share of the wall.
 Then one ``{"kernels": [...]}`` JSON line (``launches``: the count during
-``train()``; ``launches_eval``: during ``valid()``; ``ratio``: ``ms`` /
+``train()``; ``launches_eval``: during ``valid()``; ``launches_stream``:
+during ``train()`` under stream; ``ratio``: ``ms`` /
 ``library_ms``; ``device_ms`` / ``library_device_ms``: the back-to-back
 device times), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -55,6 +74,7 @@ no phase is caught and ignored.  Imports nothing of JAX or dasa_tpu.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -84,6 +104,10 @@ TRAIN = dict(
     ml_weight=0.2, feedback="sample", rollout_mode="episodic",
     fuse_passes="never", remat="never")
 TRAIN_ITERS = 8
+# the stream regime: 2B = 40 slots, S = max_action = 35 steps a window,
+# the pool sized from the mean path length (agents/stream.py)
+STREAM_W = 2 * HEADLINE["batch_size"]
+STREAM_WINDOWS = 8
 # the wrappers the main path launches (lstm_scan, K1's one-direction
 # entry, is timed in phase 2 but not on the path: the BiLSTM takes both
 # directions in one launch)
@@ -202,31 +226,11 @@ def phase_build():
 
 
 def phase_kernels(seed: int):
-    """Each kernel at its headline shapes against its plain version."""
+    """Each kernel at its headline shapes against its plain version: the
+    episodic batch (B = 20) and the stream window's slot rows (2B = 40)."""
     import torch
 
     from dasa_tpu_torch.ops import _build
-    from dasa_tpu_torch.ops.adain import (
-        adain_channel_gate,
-        adain_channel_gate_ref,
-        adain_plan,
-    )
-    from dasa_tpu_torch.ops.lstm import (
-        _fwd_ref,
-        bilstm_scan,
-        bilstm_scan_ref,
-        bwd_plan,
-        fwd_plan,
-        lstm_scan,
-        lstm_scan_bwd,
-        lstm_scan_bwd_ref,
-        lstm_scan_ref,
-    )
-    from dasa_tpu_torch.ops.shift_attention import (
-        shift_attend,
-        shift_attend_ref,
-        shift_plan,
-    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -235,191 +239,25 @@ def phase_kernels(seed: int):
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev, bf)
 
-    rows = []
-
-    # K1: the top BiLSTM, T=80, B=20, H=1024; the reverse direction runs
-    # on the flipped sequence, so its masked tokens come first
-    T, B, H, E = 80, 20, 1024, 768
     n_sm = _build.sm_count(torch.empty(1, device=dev))
-    lengths = torch.randint(20, T + 1, (B,), generator=gen)
-    mask = (torch.arange(T)[:, None] < lengths[None, :]).to(dev, bf)
-    mask2 = torch.stack([mask, mask.flip(0)])
-    xw2 = rnd(2, T, B, 4 * H, scale=0.5)
-    h02, c02 = rnd(2, B, H, scale=0.1), rnd(2, B, H, scale=0.1)
-    wt2 = rnd(2, 4 * H, H, scale=1.0 / math.sqrt(3 * H))  # weight_hh x 2
-    wh2 = wt2.transpose(1, 2)
-    xw, h0, c0, wt, wh = xw2[0], h02[0], c02[0], wt2[0], wh2[0]
-    hk, ck, ak = lstm_scan(xw, mask, h0, c0, wh, with_acts=True)
-    torch.cuda.synchronize()
-    hr, cr, ar = _fwd_ref(xw, mask, h0, c0, wh)
-    # bf16(h) feeds every product, so one-ulp differences in a token's
-    # rounding (2^-8 relative) propagate through the 80-step chain
-    err = max(check_close("lstm_scan h_seq", hk, hr, 2e-2, 0.0),
-              check_close("lstm_scan c_seq", ck, cr, 2e-2, 1e-2),
-              check_close("lstm_scan acts", ak, ar, 2e-2, 0.0))
-    got2 = bilstm_scan(xw2, mask2, h02, c02, wh2, with_acts=True)
-    torch.cuda.synchronize()
-    ref2 = bilstm_scan_ref(xw2, mask2, h02, c02, wh2)
-    err2 = max(check_close("bilstm_scan h_seq", got2[0], ref2[0], 2e-2, 0.0),
-               check_close("bilstm_scan c_seq", got2[1], ref2[1], 2e-2, 1e-2),
-               check_close("bilstm_scan acts", got2[2], ref2[2], 2e-2, 0.0))
-    for dirs in (1, 2):
-        p = fwd_plan(T, B, H, n_sm, dirs)
-        print(f"  lstm_fwd, {dirs} direction(s): {p.ctas} CTAs of {p.units} "
-              f"units, {p.smem} bytes of shared memory", flush=True)
-    # torch does not flatten bf16 cuDNN weights (it warns): each call
-    # compacts them first, a ~15 MB copy
-    lstm_cudnn = torch.nn.LSTM(E, H, device=dev, dtype=bf)
-    bilstm_cudnn = torch.nn.LSTM(E, H, device=dev, dtype=bf,
-                                 bidirectional=True)
-    x_in = rnd(T, B, E).requires_grad_()
-    packed = torch.nn.utils.rnn.pack_padded_sequence(
-        x_in, lengths, enforce_sorted=False)
-    n_bytes = 2 * (xw.numel() + mask.numel() + 2 * h0.numel() + wh.numel()
-                   + 2 * T * B * H)
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * T * B * H * 4 * H)
-    b2_ms, b2_by = bound_ms(2 * n_bytes, 2 * 2.0 * T * B * H * 4 * H)
-    b2a_ms, b2a_by = bound_ms(2 * n_bytes + 2 * xw2.numel(),
-                              2 * 2.0 * T * B * H * 4 * H)
-    cudnn = "torch.nn.LSTM (cuDNN) on a PackedSequence, input 768 " \
-            "(includes the input projection)"
-    with torch.no_grad():
-        rows.append(dict(
-            name="lstm_scan", shape="T80 B20 H1024 (one direction)",
-            max_abs_err=err, tokens=T, json=False,
-            fn=lambda: lstm_scan(xw, mask, h0, c0, wh),
-            plain_ms=time_ms(lambda: lstm_scan_ref(xw, mask, h0, c0, wh),
-                             iters=5),
-            library_fn=lambda: lstm_cudnn(packed), library_call=cudnn,
-            bound_ms=b_ms, bound_by=b_by))
-        rows.append(dict(
-            name="bilstm_scan", shape="2 x T80 B20 H1024 (both directions)",
-            max_abs_err=err2, tokens=T,
-            fn=lambda: bilstm_scan(xw2, mask2, h02, c02, wh2),
-            plain_ms=time_ms(lambda: bilstm_scan_ref(xw2, mask2, h02, c02,
-                                                     wh2), iters=3),
-            library_fn=lambda: bilstm_cudnn(packed),
-            library_call="bidirectional " + cudnn,
-            bound_ms=b2_ms, bound_by=b2_by))
-        rows.append(dict(
-            name="bilstm_scan[acts]",
-            shape="2 x T80 B20 H1024 with the gate activations (training)",
-            max_abs_err=err2, tokens=T,
-            fn=lambda: bilstm_scan(xw2, mask2, h02, c02, wh2,
-                                   with_acts=True),
-            plain_ms=time_ms(lambda: bilstm_scan_ref(xw2, mask2, h02, c02,
-                                                     wh2), iters=3),
-            library_fn=None, library_call=None,
-            bound_ms=b2a_ms, bound_by=b2a_by))
-        two = [lambda d=d: lstm_scan(xw2[d], mask2[d], h02[d], c02[d],
-                                     wh2[d], with_acts=True)
-               for d in range(2)]
-        pair = device_ms(lambda: [f() for f in two])
-        print(f"  lstm_scan, both directions as two launches with acts "
-              f"(the parent's call pattern): device time {pair:.4f} ms",
-              flush=True)
-
-    # K2: the backward of the same direction; h_seq's cotangent at every
-    # token, c_seq's only at the last (the final carry feeds the decoder)
-    c_prev = torch.cat([c0[None], ck[:-1]])
-    g_h = rnd(T, B, H, scale=0.05)
-    g_c = torch.zeros_like(g_h)
-    g_c[-1] = rnd(B, H, scale=0.05)
-    bwd_args = (ak, c_prev, g_h, g_c, mask, wh)
-    got = lstm_scan_bwd(*bwd_args)
-    torch.cuda.synchronize()
-    ref = lstm_scan_bwd_ref(*bwd_args)
-    # the same f32 arithmetic per token; the bf16 dgates of a token can
-    # round one ulp apart and carry on through the reverse chain
-    err = max(check_close(f"lstm_scan_bwd {key}", g_, r_, 0.0, 2e-2)
-              for key, g_, r_ in zip(("dxw", "dh0", "dc0"), got, ref))
-    out_c, _ = lstm_cudnn(packed)
-    go = rnd(*out_c.data.shape, scale=0.05)
-    lib_inputs = [x_in, *lstm_cudnn.parameters()]
-    n_bytes = (2 * (ak.numel() + 3 * g_h.numel() + mask.numel() + wh.numel()
-                    + ak.numel()) + 4 * 2 * B * H)
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * T * B * H * 4 * H)
-    plan = bwd_plan(T, B, H, _build.sm_count(ak))
-    print(f"  lstm_scan_bwd: {plan.ctas} CTAs (no clusters), {plan.stages} "
-          f"stages of {plan.kc} columns, {plan.smem} bytes of shared memory",
-          flush=True)
-    rows.append(dict(
-        name="lstm_scan_bwd", shape="T80 B20 H1024 (one direction)",
-        max_abs_err=err, tokens=T, fn=lambda: lstm_scan_bwd(*bwd_args),
-        plain_ms=time_ms(lambda: lstm_scan_bwd_ref(*bwd_args), iters=5),
-        library_fn=lambda: torch.autograd.grad(
-            out_c.data, lib_inputs, go, retain_graph=True),
-        library_call="backward of the torch.nn.LSTM (cuDNN) call above "
-                     "(includes the input-projection grads)",
-        bound_ms=b_ms, bound_by=b_by))
-    # K3: the AdaIN gate, panorama (720 rows) and candidates (320 rows)
-    C = 2048
-    w_t = rnd(C, C, scale=1.0 / math.sqrt(C))           # torch a_fc.weight
-    bias = rnd(C, scale=0.1)
-    for label, n in (("pano", B * 36), ("cand", B * 16)):
-        f = rnd(B, n // B, C).relu()
-        d = rnd(B, n // B, C).relu()
-        out = adain_channel_gate(f, d, w_t.t(), bias)
-        torch.cuda.synchronize()
-        ref = adain_channel_gate_ref(f, d, w_t.t(), bias)
-        # f32 accumulation in both; the outputs round to bf16 once
-        e1 = check_close(f"adain_channel_gate {label}", out, ref, 1e-2, 1e-2)
-        noise = (torch.rand(C, generator=gen) > 0.4).to(dev, bf) / 0.6
-        e2 = check_close(f"adain_channel_gate {label} noise",
-                         adain_channel_gate(f, d, w_t.t(), bias, noise),
-                         adain_channel_gate_ref(f, d, w_t.t(), bias, noise),
-                         1e-2, 1e-2)
-        w_kc = w_t.t().contiguous()
-        n_bytes = 2 * (f.numel() + d.numel() + w_t.numel() + 2 * C
-                       + f.numel())
-        b_ms, b_by = bound_ms(n_bytes, 2.0 * n * C * C)
-        d2 = d.reshape(n, C)
-        k3 = adain_plan(n, C, C, n_sm)
-        print(f"  adain_channel_gate {label}: tiles 128x{k3.bn}, grid "
-              f"{k3.grid}, {k3.stages} stages", flush=True)
-        rows.append(dict(
-            name=f"adain_channel_gate[{label}]", shape=f"{n}x{C} @ {C}x{C}",
-            max_abs_err=max(e1, e2),
-            fn=lambda f=f, d=d: adain_channel_gate(f, d, w_t.t(), bias),
-            plain_ms=time_ms(
-                lambda: adain_channel_gate_ref(f, d, w_t.t(), bias)),
-            library_fn=lambda d2=d2, w_kc=w_kc: torch.addmm(bias, d2, w_kc),
-            library_call="torch.addmm, the bare GEMM (a floor)",
-            bound_ms=b_ms, bound_by=b_by))
-
-    # K4: shift attention, B=20, 36 views, C=2176, H=1024, k=5
-    Cf, ks = 2176, 5
-    h = rnd(B, H, scale=0.5)
-    ctx = rnd(B, 36, Cf).relu()
-    w_in = rnd(Cf, H, scale=1.0 / math.sqrt(H)).t()       # (H, C) view
-    w_s = rnd(ks, H, scale=1.0 / math.sqrt(H)).t()
-    b_s = rnd(ks, scale=0.1)
-    ok_, lk = shift_attend(h, ctx, w_in, w_s, b_s)
-    torch.cuda.synchronize()
-    orf, lrf = shift_attend_ref(h, ctx, w_in, w_s, b_s)
-    # logits: f32 sums of 2176 products in another order; out: bf16
-    err = max(check_close("shift_attend logits", lk, lrf, 1e-3, 1e-4),
-              check_close("shift_attend out", ok_, orf, 1e-2, 1e-2))
-    k4 = shift_plan(B, 36, Cf, H, ks, n_sm)
-    print(f"  shift_attend: {k4.ctas} CTAs of {k4.sw} columns, {k4.smem} "
-          "bytes of shared memory", flush=True)
-    n_bytes = (2 * (h.numel() + ctx.numel() + w_in.numel() + w_s.numel()
-                    + ks + B * Cf) + 4 * B * 36)
-    flops = 2.0 * B * H * (Cf + ks) + 2 * 2.0 * B * 36 * Cf
-    b_ms, b_by = bound_ms(n_bytes, flops)
-    rows.append(dict(
-        name="shift_attend", shape="B20 T36 C2176 H1024 k5",
-        max_abs_err=err,
-        fn=lambda: shift_attend(h, ctx, w_in, w_s, b_s),
-        plain_ms=time_ms(lambda: shift_attend_ref(h, ctx, w_in, w_s, b_s)),
-        library_fn=None, library_call=None, bound_ms=b_ms, bound_by=b_by))
-    check_function_grads(rnd, mask, wh, w_t, bias, w_in, w_s, b_s, mask2,
-                         wh2)
+    rows = []
+    for B in (20, STREAM_W):
+        tag = "" if B == 20 else f"B{B}"
+        k1, k2, (mask, wh, mask2, wh2) = kernel_rows_lstm(rnd, gen, B, n_sm,
+                                                          tag)
+        k3, (w_t, bias) = kernel_rows_adain(rnd, gen, B, n_sm, tag)
+        k4, (w_in, w_s, b_s) = kernel_rows_shift(rnd, B, n_sm, tag)
+        rows += k1 + k2 + k3 + k4
+        if tag:  # BiLstmScanFn at the stream width (one launch a direction)
+            check_bilstm_fn_grads(rnd, mask2, wh2, "BiLstmScanFn B40")
+        else:
+            check_function_grads(rnd, mask, wh, w_t, bias, w_in, w_s, b_s,
+                                 mask2, wh2)
     for r in rows:
         fn, lib_fn = r.pop("fn"), r.pop("library_fn")
         # K1 and its cuDNN forward under no_grad; K2's yardstick is a
         # backward
-        with torch.set_grad_enabled(r["name"] == "lstm_scan_bwd"):
+        with torch.set_grad_enabled(r["name"].startswith("lstm_scan_bwd")):
             r["ms"], r["device_ms"] = time_ms(fn), device_ms(fn)
             r["library_ms"], r["library_device_ms"] = (
                 (None, None) if lib_fn is None
@@ -442,6 +280,285 @@ def phase_kernels(seed: int):
     return rows
 
 
+def _named(base, tag, *more):
+    inner = ",".join(x for x in (*more, tag) if x)
+    return f"{base}[{inner}]" if inner else base
+
+
+def kernel_rows_lstm(rnd, gen, B, n_sm, tag):
+    """K1 (one direction at B = 20 only; both directions, with and without
+    the gate activations) and K2 at batch B, T = 80, H = 1024."""
+    import torch
+
+    from dasa_tpu_torch.ops.lstm import (
+        _fwd_ref,
+        bilstm_scan,
+        bilstm_scan_ref,
+        fwd_plan,
+        lstm_scan,
+        lstm_scan_bwd,
+        lstm_scan_bwd_ref,
+        lstm_scan_ref,
+        bwd_plan,
+    )
+    from dasa_tpu_torch.ops import _build
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rows = []
+    # the top BiLSTM, T=80, H=1024; the reverse direction runs on the
+    # flipped sequence, so its masked tokens come first
+    T, H, E = 80, 1024, 768
+    lengths = torch.randint(20, T + 1, (B,), generator=gen)
+    mask = (torch.arange(T)[:, None] < lengths[None, :]).to(dev, bf)
+    mask2 = torch.stack([mask, mask.flip(0)])
+    xw2 = rnd(2, T, B, 4 * H, scale=0.5)
+    h02, c02 = rnd(2, B, H, scale=0.1), rnd(2, B, H, scale=0.1)
+    wt2 = rnd(2, 4 * H, H, scale=1.0 / math.sqrt(3 * H))  # weight_hh x 2
+    wh2 = wt2.transpose(1, 2)
+    xw, h0, c0, wh = xw2[0], h02[0], c02[0], wh2[0]
+    # bf16(h) feeds every product, so one-ulp differences in a token's
+    # rounding (2^-8 relative) propagate through the 80-step chain
+    got2 = bilstm_scan(xw2, mask2, h02, c02, wh2, with_acts=True)
+    torch.cuda.synchronize()
+    ref2 = bilstm_scan_ref(xw2, mask2, h02, c02, wh2)
+    err2 = max(check_close(_named("bilstm_scan h_seq", tag), got2[0], ref2[0],
+                           2e-2, 0.0),
+               check_close(_named("bilstm_scan c_seq", tag), got2[1], ref2[1],
+                           2e-2, 1e-2),
+               check_close(_named("bilstm_scan acts", tag), got2[2], ref2[2],
+                           2e-2, 0.0))
+    if not tag:
+        hk, ck, ak = lstm_scan(xw, mask, h0, c0, wh, with_acts=True)
+        torch.cuda.synchronize()
+        hr, cr, ar = _fwd_ref(xw, mask, h0, c0, wh)
+        err = max(check_close("lstm_scan h_seq", hk, hr, 2e-2, 0.0),
+                  check_close("lstm_scan c_seq", ck, cr, 2e-2, 1e-2),
+                  check_close("lstm_scan acts", ak, ar, 2e-2, 0.0))
+    else:
+        ck, ak = got2[1][0], got2[2][0]
+    for dirs in (1, 2):
+        p = fwd_plan(T, B, H, n_sm, dirs)
+        print(f"  lstm_fwd B={B}, {dirs} direction(s): {p.launches} "
+              f"launch(es) of {p.ctas} CTAs of {p.units} units, {p.smem} "
+              "bytes of shared memory", flush=True)
+    # torch does not flatten bf16 cuDNN weights (it warns): each call
+    # compacts them first, a ~15 MB copy
+    lstm_cudnn = torch.nn.LSTM(E, H, device=dev, dtype=bf)
+    bilstm_cudnn = torch.nn.LSTM(E, H, device=dev, dtype=bf,
+                                 bidirectional=True)
+    x_in = rnd(T, B, E).requires_grad_()
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        x_in, lengths, enforce_sorted=False)
+    n_bytes = 2 * (xw.numel() + mask.numel() + 2 * h0.numel() + wh.numel()
+                   + 2 * T * B * H)
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * T * B * H * 4 * H)
+    b2_ms, b2_by = bound_ms(2 * n_bytes, 2 * 2.0 * T * B * H * 4 * H)
+    b2a_ms, b2a_by = bound_ms(2 * n_bytes + 2 * xw2.numel(),
+                              2 * 2.0 * T * B * H * 4 * H)
+    cudnn = "torch.nn.LSTM (cuDNN) on a PackedSequence, input 768 " \
+            "(includes the input projection)"
+    shape = f"T80 B{B} H1024"
+    with torch.no_grad():
+        if not tag:
+            rows.append(dict(
+                name="lstm_scan", shape=f"{shape} (one direction)",
+                max_abs_err=err, tokens=T, json=False,
+                fn=lambda: lstm_scan(xw, mask, h0, c0, wh),
+                plain_ms=time_ms(lambda: lstm_scan_ref(xw, mask, h0, c0, wh),
+                                 iters=5),
+                library_fn=lambda: lstm_cudnn(packed), library_call=cudnn,
+                bound_ms=b_ms, bound_by=b_by))
+        plain2 = time_ms(lambda: bilstm_scan_ref(xw2, mask2, h02, c02, wh2),
+                         iters=3)
+        rows.append(dict(
+            name=_named("bilstm_scan", tag),
+            shape=f"2 x {shape} (both directions)",
+            max_abs_err=err2, tokens=T,
+            fn=lambda: bilstm_scan(xw2, mask2, h02, c02, wh2),
+            plain_ms=plain2, library_fn=lambda: bilstm_cudnn(packed),
+            library_call="bidirectional " + cudnn,
+            bound_ms=b2_ms, bound_by=b2_by))
+        rows.append(dict(
+            name=_named("bilstm_scan", tag, "acts"),
+            shape=f"2 x {shape} with the gate activations (training)",
+            max_abs_err=err2, tokens=T,
+            fn=lambda: bilstm_scan(xw2, mask2, h02, c02, wh2,
+                                   with_acts=True),
+            plain_ms=plain2, library_fn=None, library_call=None,
+            bound_ms=b2a_ms, bound_by=b2a_by))
+        if not tag:
+            two = [lambda d=d: lstm_scan(xw2[d], mask2[d], h02[d], c02[d],
+                                         wh2[d], with_acts=True)
+                   for d in range(2)]
+            pair = device_ms(lambda: [f() for f in two])
+            print(f"  lstm_scan, both directions as two launches with acts: "
+                  f"device time {pair:.4f} ms", flush=True)
+
+    # K2: the backward of direction 0; h_seq's cotangent at every token,
+    # c_seq's only at the last (the final carry feeds the decoder)
+    c_prev = torch.cat([c0[None], ck[:-1]])
+    g_h = rnd(T, B, H, scale=0.05)
+    g_c = torch.zeros_like(g_h)
+    g_c[-1] = rnd(B, H, scale=0.05)
+    bwd_args = (ak, c_prev, g_h, g_c, mask, wh)
+    got = lstm_scan_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    ref = lstm_scan_bwd_ref(*bwd_args)
+    # the same f32 arithmetic per token; the bf16 dgates of a token can
+    # round one ulp apart and carry on through the reverse chain
+    err = max(check_close(_named(f"lstm_scan_bwd {key}", tag), g_, r_, 0.0,
+                          2e-2)
+              for key, g_, r_ in zip(("dxw", "dh0", "dc0"), got, ref))
+    out_c, _ = lstm_cudnn(packed)
+    go = rnd(*out_c.data.shape, scale=0.05)
+    lib_inputs = [x_in, *lstm_cudnn.parameters()]
+    n_bytes = (2 * (ak.numel() + 3 * g_h.numel() + mask.numel() + wh.numel()
+                    + ak.numel()) + 4 * 2 * B * H)
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * T * B * H * 4 * H)
+    plan = bwd_plan(T, B, H, _build.sm_count(ak))
+    print(f"  lstm_scan_bwd B={B}: {plan.ctas} CTAs (no clusters), "
+          f"{plan.stages} stages of {plan.kc} columns, {plan.smem} bytes of "
+          "shared memory", flush=True)
+    k2 = [dict(
+        name=_named("lstm_scan_bwd", tag), shape=f"{shape} (one direction)",
+        max_abs_err=err, tokens=T, fn=lambda: lstm_scan_bwd(*bwd_args),
+        plain_ms=time_ms(lambda: lstm_scan_bwd_ref(*bwd_args), iters=5),
+        library_fn=lambda: torch.autograd.grad(
+            out_c.data, lib_inputs, go, retain_graph=True),
+        library_call="backward of the torch.nn.LSTM (cuDNN) call above "
+                     "(includes the input-projection grads)",
+        bound_ms=b_ms, bound_by=b_by)]
+    return rows, k2, (mask, wh, mask2, wh2)
+
+
+def kernel_rows_adain(rnd, gen, B, n_sm, tag):
+    """K3, the AdaIN gate, on the panorama (36 B rows) and the candidates
+    (16 B rows)."""
+    import torch
+
+    from dasa_tpu_torch.ops.adain import (
+        adain_channel_gate,
+        adain_channel_gate_ref,
+        adain_plan,
+    )
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    C = 2048
+    w_t = rnd(C, C, scale=1.0 / math.sqrt(C))           # torch a_fc.weight
+    bias = rnd(C, scale=0.1)
+    rows = []
+    for label, n in (("pano", B * 36), ("cand", B * 16)):
+        f = rnd(B, n // B, C).relu()
+        d = rnd(B, n // B, C).relu()
+        out = adain_channel_gate(f, d, w_t.t(), bias)
+        torch.cuda.synchronize()
+        ref = adain_channel_gate_ref(f, d, w_t.t(), bias)
+        # f32 accumulation in both; the outputs round to bf16 once
+        name = _named("adain_channel_gate", tag, label)
+        e1 = check_close(name, out, ref, 1e-2, 1e-2)
+        noise = (torch.rand(C, generator=gen) > 0.4).to(dev, bf) / 0.6
+        e2 = check_close(f"{name} noise",
+                         adain_channel_gate(f, d, w_t.t(), bias, noise),
+                         adain_channel_gate_ref(f, d, w_t.t(), bias, noise),
+                         1e-2, 1e-2)
+        w_kc = w_t.t().contiguous()
+        n_bytes = 2 * (f.numel() + d.numel() + w_t.numel() + 2 * C
+                       + f.numel())
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * n * C * C)
+        d2 = d.reshape(n, C)
+        k3 = adain_plan(n, C, C, n_sm)
+        print(f"  {name}: tiles 128x{k3.bn}, grid {k3.grid}, {k3.stages} "
+              "stages", flush=True)
+        rows.append(dict(
+            name=name, shape=f"{n}x{C} @ {C}x{C}",
+            max_abs_err=max(e1, e2),
+            fn=lambda f=f, d=d: adain_channel_gate(f, d, w_t.t(), bias),
+            plain_ms=time_ms(
+                lambda f=f, d=d: adain_channel_gate_ref(f, d, w_t.t(), bias)),
+            library_fn=lambda d2=d2, w_kc=w_kc: torch.addmm(bias, d2, w_kc),
+            library_call="torch.addmm, the bare GEMM (a floor)",
+            bound_ms=b_ms, bound_by=b_by))
+    return rows, (w_t, bias)
+
+
+def kernel_rows_shift(rnd, B, n_sm, tag):
+    """K4, the shift attention: 36 views, C = 2176, H = 1024, k = 5."""
+    import torch
+
+    from dasa_tpu_torch.ops.shift_attention import (
+        shift_attend,
+        shift_attend_ref,
+        shift_plan,
+    )
+
+    H, Cf, ks = 1024, 2176, 5
+    h = rnd(B, H, scale=0.5)
+    ctx = rnd(B, 36, Cf).relu()
+    w_in = rnd(Cf, H, scale=1.0 / math.sqrt(H)).t()       # (H, C) view
+    w_s = rnd(ks, H, scale=1.0 / math.sqrt(H)).t()
+    b_s = rnd(ks, scale=0.1)
+    ok_, lk = shift_attend(h, ctx, w_in, w_s, b_s)
+    torch.cuda.synchronize()
+    orf, lrf = shift_attend_ref(h, ctx, w_in, w_s, b_s)
+    # logits: f32 sums of 2176 products in another order; out: bf16
+    name = _named("shift_attend", tag)
+    err = max(check_close(f"{name} logits", lk, lrf, 1e-3, 1e-4),
+              check_close(f"{name} out", ok_, orf, 1e-2, 1e-2))
+    k4 = shift_plan(B, 36, Cf, H, ks, n_sm)
+    print(f"  {name}: {k4.ctas} CTAs of {k4.sw} columns, {k4.smem} bytes of "
+          "shared memory", flush=True)
+    n_bytes = (2 * (h.numel() + ctx.numel() + w_in.numel() + w_s.numel()
+                    + ks + B * Cf) + 4 * B * 36)
+    flops = 2.0 * B * H * (Cf + ks) + 2 * 2.0 * B * 36 * Cf
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    return [dict(
+        name=name, shape=f"B{B} T36 C2176 H1024 k5", max_abs_err=err,
+        fn=lambda: shift_attend(h, ctx, w_in, w_s, b_s),
+        plain_ms=time_ms(lambda: shift_attend_ref(h, ctx, w_in, w_s, b_s)),
+        library_fn=None, library_call=None, bound_ms=b_ms,
+        bound_by=b_by)], (w_in, w_s, b_s)
+
+
+def _grads(fn, leaves, cots):
+    import torch
+
+    leaves = [x.detach().clone().requires_grad_() for x in leaves]
+    return torch.autograd.grad(fn(*leaves), leaves, cots)
+
+
+def compare(name, fn, ref_fn, leaves, names, cots, rtol):
+    """Gradients through ``fn`` (kernels) and ``ref_fn`` (plain) for the
+    cotangents ``cots``, each within ``rtol`` of the plain one's max."""
+    import torch
+
+    got = _grads(fn, leaves, cots)
+    torch.cuda.synchronize()
+    ref = _grads(ref_fn, leaves, cots)
+    return max(check_close(f"{name} d{key}", g, r, 0.0, rtol)
+               for key, g, r in zip(names, got, ref))
+
+
+def check_bilstm_fn_grads(rnd, mask2, wh2, name):
+    """BiLstmScanFn (K1 forward, K2 backward) against autograd through the
+    plain version, at the mask's batch."""
+    import torch
+
+    from dasa_tpu_torch.ops.lstm import bilstm_scan_fn, bilstm_scan_ref
+
+    _dirs, T, B = mask2.shape
+    H = wh2.shape[1]
+    g_c2 = torch.zeros(2, T, B, H, device=mask2.device, dtype=mask2.dtype)
+    g_c2[:, -1] = rnd(2, B, H, scale=0.05)
+    # the kernel path rounds the gates, c_prev and dgates to bf16 where the
+    # plain autograd keeps f32 (the TPU package's design): a few percent
+    compare(name,
+            lambda xw, h0, c0, w: bilstm_scan_fn(xw, mask2, h0, c0, w),
+            lambda xw, h0, c0, w: bilstm_scan_ref(xw, mask2, h0, c0, w)[:2],
+            (rnd(2, T, B, 4 * H, scale=0.5), rnd(2, B, H, scale=0.1),
+             rnd(2, B, H, scale=0.1), wh2), ("xw", "h0", "c0", "wh"),
+            (rnd(2, T, B, H, scale=0.05), g_c2), 5e-2)
+
+
 def check_function_grads(rnd, mask, wh, w_ta, b_a, w_in, w_s, b_s, mask2,
                          wh2):
     """Gradients of LstmScanFn, BiLstmScanFn, AdainGateFn and
@@ -450,28 +567,11 @@ def check_function_grads(rnd, mask, wh, w_ta, b_a, w_in, w_s, b_s, mask2,
     import torch
 
     from dasa_tpu_torch.ops.adain import AdainGateFn, adain_channel_gate_ref
-    from dasa_tpu_torch.ops.lstm import (
-        LstmScanFn,
-        bilstm_scan_fn,
-        bilstm_scan_ref,
-        lstm_scan_ref,
-    )
+    from dasa_tpu_torch.ops.lstm import LstmScanFn, lstm_scan_ref
     from dasa_tpu_torch.ops.shift_attention import (
         ShiftAttendFn,
         shift_attend_ref,
     )
-
-    def grads(fn, leaves, cots):
-        leaves = [x.detach().clone().requires_grad_() for x in leaves]
-        outs = fn(*leaves)
-        return torch.autograd.grad(outs, leaves, cots)
-
-    def compare(name, fn, ref_fn, leaves, names, cots, rtol):
-        got = grads(fn, leaves, cots)
-        torch.cuda.synchronize()
-        ref = grads(ref_fn, leaves, cots)
-        return max(check_close(f"{name} d{key}", g, r, 0.0, rtol)
-                   for key, g, r in zip(names, got, ref))
 
     T, B = mask.shape
     H = wh.shape[0]
@@ -486,14 +586,7 @@ def check_function_grads(rnd, mask, wh, w_ta, b_a, w_in, w_s, b_s, mask2,
             lambda xw, h0, c0, w: lstm_scan_ref(xw, mask, h0, c0, w),
             lstm_leaves, ("xw", "h0", "c0", "wh"),
             (rnd(T, B, H, scale=0.05), g_c), 5e-2)
-    g_c2 = torch.zeros(2, T, B, H, device=mask.device, dtype=mask.dtype)
-    g_c2[:, -1] = rnd(2, B, H, scale=0.05)
-    compare("BiLstmScanFn",
-            lambda xw, h0, c0, w: bilstm_scan_fn(xw, mask2, h0, c0, w),
-            lambda xw, h0, c0, w: bilstm_scan_ref(xw, mask2, h0, c0, w)[:2],
-            (rnd(2, T, B, 4 * H, scale=0.5), rnd(2, B, H, scale=0.1),
-             rnd(2, B, H, scale=0.1), wh2), ("xw", "h0", "c0", "wh"),
-            (rnd(2, T, B, H, scale=0.05), g_c2), 5e-2)
+    check_bilstm_fn_grads(rnd, mask2, wh2, "BiLstmScanFn")
     C = w_ta.shape[0]
     f, d = rnd(B, 36, C).relu(), rnd(B, 36, C).relu()
     noise = (rnd(C) > -0.25).to(f.dtype) / 0.6
@@ -546,6 +639,7 @@ def phase_main(cfg, world, seed: int):
     from dasa_tpu_torch.train.trainer import make_agent, valid
 
     agent = make_agent(cfg, world, rng_seed=seed)
+    trajs = capture_results(agent)
     torch.cuda.synchronize()
     ops.reset_kernel_launches()
     start = time.perf_counter()
@@ -553,6 +647,8 @@ def phase_main(cfg, world, seed: int):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = ops.kernel_launches()
+    del agent.test  # the wrapper's reference cycle would outlive the agent
+    check_coverage(world, trajs)
     episodes = 0
     for split, summary in out.items():
         n = world.envs[split].size()
@@ -568,7 +664,31 @@ def phase_main(cfg, world, seed: int):
     for name in EVAL_KERNELS:
         if launches[name] <= 0:
             fail(f"kernel {name} never launched during valid()")
-    return agent, launches
+    return agent, launches, trajs
+
+
+def capture_results(agent):
+    """Record each split's ``agent.test()`` results, by env name."""
+    trajs = {}
+    test = agent.test
+
+    def recording_test(*args, **kwargs):
+        out = test(*args, **kwargs)
+        trajs[agent.env.name] = out
+        return out
+
+    agent.test = recording_test
+    return trajs
+
+
+def check_coverage(world, trajs):
+    """Every split evaluated: each instr_id of the split exactly once."""
+    for split, results in trajs.items():
+        got = sorted(r["instr_id"] for r in results)
+        want = sorted(item["instr_id"] for item in world.envs[split].data)
+        if got != want:
+            fail(f"{split}: {len(got)} results for {len(want)} episodes, "
+                 "or instr_ids not each covered once")
 
 
 def phase_compare(cfg, world, agent_always, seed: int):
@@ -631,6 +751,7 @@ def phase_train(cfg, world, seed: int, root: str):
         iter_s.append(time.perf_counter() - start)
 
     agent.train = timed  # train() runs one iteration per log interval
+    gc.collect()  # no earlier phase's agent in the peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_kernel_launches()
@@ -658,10 +779,7 @@ def phase_train(cfg, world, seed: int, root: str):
     if moved != {"encoder", "decoder", "critic", "adain"}:
         fail(f"train(): parameters of {sorted(moved)} moved, expected the "
              "encoder's BiLSTM, decoder, critic and adain")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     print(f"  train(): {seconds:.2f} s for {TRAIN_ITERS} iterations "
           f"(checkpoint included); iteration s {[round(x, 4) for x in iter_s]}"
           f", median after the first {statistics.median(iter_s[1:]):.4f} s; "
@@ -726,6 +844,138 @@ def phase_train_compare(cfg, world, seed: int):
         fail(f"train-compare: gradient cosine {cos} below 0.99")
 
 
+def phase_stream(cfg, world, seed: int, root: str):
+    """train() under the stream regime at headline width: STREAM_WINDOWS
+    windows of 2B = 40 slots x 35 steps, one optimizer step each."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.train.trainer import make_agent, train
+
+    cfg = cfg.replace(iters=STREAM_WINDOWS, log_every=1, val_every=10 ** 9,
+                      save_every=10 ** 9, snap_dir=os.path.join(root, "snap"),
+                      log_dir=os.path.join(root, "log"))
+    agent = make_agent(cfg, world, rng_seed=seed)
+    trained = ("encoder.lstm.", "decoder.", "critic.", "adain.")
+    before = {name: p.detach().clone()
+              for name, p in agent.policy.named_parameters()
+              if name.startswith(trained)}
+    window = agent.device_rollout_stream
+    host_s, window_losses = [], []
+
+    def recorded(*args, **kwargs):
+        # the slot-time grids and the losses stay on the card: no sync
+        start = time.perf_counter()
+        window(*args, record=True, **kwargs)
+        host_s.append(time.perf_counter() - start)
+        window_losses.append(agent.losses[-1])
+
+    agent.device_rollout_stream = recorded
+    gc.collect()  # no earlier phase's agent in the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    start = time.perf_counter()
+    train(cfg, world, agent=agent)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del agent.device_rollout_stream  # its wrapper's reference cycle
+    st = agent._stream_host()
+    geom = st.geom
+    print(f"  launches during train() under stream: {launches}", flush=True)
+    for name in PATH_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} never launched during train() under stream")
+    if len(st.records) != STREAM_WINDOWS or agent.iter_count != STREAM_WINDOWS:
+        fail(f"stream train(): {agent.iter_count} optimizer steps, "
+             f"{len(st.records)} windows, expected {STREAM_WINDOWS}")
+    losses = [float(x) for x in window_losses]
+    if len(losses) != STREAM_WINDOWS or not all(math.isfinite(x)
+                                                for x in losses):
+        fail(f"stream train(): non-finite loss in {losses}")
+    moved = {name.split(".")[0] for name, p in agent.policy.named_parameters()
+             if name in before and not torch.equal(p.detach(), before[name])}
+    if moved != {"encoder", "decoder", "critic", "adain"}:
+        fail(f"stream train(): parameters of {sorted(moved)} moved, "
+             "expected the encoder's BiLSTM, decoder, critic and adain")
+    recs = [{k: v.cpu().numpy() for k, v in r.items()} for r in st.records]
+    uids = []
+    for r in recs:
+        uids += r["rec_uid"][r["rec_take"] & (r["rec_uid"] >= 0)].tolist()
+    if len(uids) != len(set(uids)) or not set(uids) <= set(st.staged):
+        fail(f"stream train(): {len(uids)} episodes taken, "
+             f"{len(set(uids))} distinct; an episode was taken twice or "
+             "one was never staged")
+    if any((r["rec_take"] & (r["rec_uid"] < 0)).any() for r in recs):
+        fail("stream train(): the placeholder episode was taken")
+    starved = sum(int((~r["rec_real"] & ~r["rec_trunc"]).sum())
+                  for r in recs)
+    cells = STREAM_WINDOWS * geom.S * geom.W
+    steps = agent.env_steps_total()
+    card = card_name()
+    timer = agent.stream_timer
+    phases = ", ".join(f"{k} {v:.3f} s" for k, v in sorted(
+        timer.culmu.items(), key=lambda kv: -kv[1]))
+    print(f"  stream geometry: W {geom.W} slots, S {geom.S} steps, pool "
+          f"{geom.E} a half; {len(uids)} episodes taken, each once; starved "
+          f"slot-steps {starved}/{cells} = {starved / cells:.4f}", flush=True)
+    print(f"  losses: {[round(x, 4) for x in losses]}; components moved: "
+          f"{sorted(moved)}", flush=True)
+    print(f"  stream train(): {seconds:.2f} s for {STREAM_WINDOWS} windows "
+          f"(checkpoint included), {seconds / STREAM_WINDOWS:.4f} s a window;"
+          f" host s a window {[round(x, 4) for x in host_s]}; "
+          f"{steps / seconds:.2f} training agent-steps/s ({steps} "
+          f"agent-steps, device sync at the end); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; host phases {phases}; card {card}",
+          flush=True)
+    return launches
+
+
+def phase_stream_eval(cfg, world, state, episodic, seed: int):
+    """valid() under the stream regime with phase 3's weights."""
+    import torch
+
+    from dasa_tpu_torch.train.trainer import make_agent, valid
+
+    cfg = cfg.replace(rollout_mode="stream")
+    agent = make_agent(cfg, world, rng_seed=seed)
+    agent.policy.load_state_dict(state)
+    trajs = capture_results(agent)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = valid(cfg, world, agent=agent)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    del agent.test
+    check_coverage(world, trajs)
+    same = total = 0
+    for split, summary in out.items():
+        check_summary(split, summary)
+        ref = {r["instr_id"]: r["trajectory"] for r in episodic[split]}
+        eq = sum(r["trajectory"] == ref[r["instr_id"]] for r in trajs[split])
+        same, total = same + eq, total + len(ref)
+        print(f"  {split} (stream): SR {summary['success_rate']:.4f} SPL "
+              f"{summary['spl']:.4f} NE {summary['nav_error']:.4f}; "
+              f"{eq}/{len(ref)} trajectories equal to phase 3's", flush=True)
+    # the pool outnumbers a smoke split, so the slots also walk episodes
+    # staged again after the split wrapped (as in the JAX package): the
+    # agent-steps count them, the episodes/s do not
+    print(f"  stream valid(): {seconds:.2f} s, {total / seconds:.2f} "
+          f"episodes/s, {agent.total_env_steps / seconds:.2f} agent-steps/s "
+          f"walked ({agent.total_env_steps} agent-steps, episodes staged "
+          f"again included); trajectories equal to the episodic valid(): "
+          f"{same}/{total} = {same / total:.3f}", flush=True)
+
+
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def profile_window(label: str, fn, steps_of):
     """fn() once under torch.profiler: device busy share of its wall time
     and device time by kernel; steps_of() counts its agent-steps."""
@@ -757,7 +1007,8 @@ def profile_window(label: str, fn, steps_of):
 
 
 def phase_profile(cfg, cfg_train, world, seed: int):
-    """Where one eval batch's and one training iteration's time goes."""
+    """Where one eval batch's, one training iteration's and one stream
+    window's time goes."""
     from dasa_tpu_torch.train.trainer import make_agent
 
     agent = make_agent(cfg, world, rng_seed=seed)
@@ -774,12 +1025,21 @@ def phase_profile(cfg, cfg_train, world, seed: int):
     profile_window("training iteration (teacher + sample + optim)",
                    lambda: agent.train(1, feedback="sample"),
                    agent.env_steps_total)
+    del agent
+    agent = make_agent(cfg_train.replace(rollout_mode="stream"), world,
+                       rng_seed=seed)
+    agent.env = world.envs["train"]
+    agent.train(2, feedback="sample")  # warm-up: the pool fills
+    profile_window("stream window (40 slots x 35 steps + optim)",
+                   lambda: agent.train(1, feedback="sample"),
+                   agent.env_steps_total)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,main,compare,train,train-compare")
+                    default="build,kernels,main,compare,train,train-compare,"
+                            "stream,stream-eval")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -805,18 +1065,23 @@ def main() -> None:
     if "kernels" in phases:
         print("== phase 2: kernels against their plain versions", flush=True)
         rows = phase_kernels(args.seed)
-    launches_eval, launches = {}, {}
-    if phases & {"main", "compare", "train", "train-compare", "profile"}:
+    launches_eval, launches, launches_stream = {}, {}, {}
+    if phases & {"main", "compare", "train", "train-compare", "stream",
+                 "stream-eval", "profile"}:
         with tempfile.TemporaryDirectory() as root:
             cfg, world = headline_world(root, args.seed, use_pallas="always")
             cfg_train = cfg.replace(**TRAIN)
-            if phases & {"main", "compare"}:
+            if phases & {"main", "compare", "stream-eval"}:
                 print("== phase 3: valid() at headline width", flush=True)
-                agent, launches_eval = phase_main(cfg, world, args.seed)
+                agent, launches_eval, episodic = phase_main(cfg, world,
+                                                            args.seed)
                 if "compare" in phases:
                     print("== phase 4: use_pallas always vs never",
                           flush=True)
                     phase_compare(cfg, world, agent, args.seed)
+                # on the host: the later phases' peak memory excludes it
+                state = {k: v.to("cpu", copy=True)
+                         for k, v in agent.policy.state_dict().items()}
                 del agent
             if "train" in phases:
                 print("== phase 5: train() at headline width", flush=True)
@@ -825,20 +1090,33 @@ def main() -> None:
                 print("== phase 6: training pass, use_pallas always vs "
                       "never", flush=True)
                 phase_train_compare(cfg_train, world, args.seed)
+            if "stream" in phases:
+                print("== phase 7 (stream): train() under the stream regime "
+                      "at headline width", flush=True)
+                launches_stream = phase_stream(
+                    cfg_train.replace(rollout_mode="stream"), world,
+                    args.seed, root)
+            if "stream-eval" in phases:
+                print("== phase 8 (stream-eval): valid() under the stream "
+                      "regime, phase 3's weights", flush=True)
+                phase_stream_eval(cfg, world, state, episodic, args.seed)
             if "profile" in phases:
-                print("== profile: one eval batch, one training iteration",
-                      flush=True)
+                print("== profile: one eval batch, one training iteration, "
+                      "one stream window", flush=True)
                 phase_profile(cfg, cfg_train, world, args.seed)
     if rows:
-        print("== phase 2 rows with the launches of phases 3 and 5", flush=True)
+        print("== phase 2 rows with the launches of phases 3, 5 and 7",
+              flush=True)
     for r in rows:
         base = r["name"].split("[")[0]
         per_token = ("" if "us_per_token" not in r
                      else f", {r['us_per_token']:.3f} us a token")
         print(f"  {r['name']}: {r['ms']:.4f} ms one call, {r['device_ms']:.4f}"
               f" ms device, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-              f"launches {launches.get(base, 0)} in train() and "
-              f"{launches_eval.get(base, 0)} in valid(){per_token}",
+              f"launches {launches.get(base, 0)} in train(), "
+              f"{launches_eval.get(base, 0)} in valid() and "
+              f"{launches_stream.get(base, 0)} in train() under stream"
+              f"{per_token}",
               flush=True)
     out = []
     for r in rows:
@@ -850,6 +1128,7 @@ def main() -> None:
                     "replaces": replaces,
                     "launches": launches.get(base, 0),
                     "launches_eval": launches_eval.get(base, 0),
+                    "launches_stream": launches_stream.get(base, 0),
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -20,10 +20,12 @@ Dropout masks, the env-drop noise and sampled actions draw from one
 ``torch.Generator`` reseeded per rollout from (seed, rollout counter), the
 JAX agent's ``fold_in(_base_rng, _rollout_counter)``; the two frameworks'
 streams differ, so parity with the JAX package holds with dropout off and
-the noise passed in.  The host act/replay rollout, the stream regime, the
-combined 2B-wide program (``fuse_passes="auto"``), ``remat`` other than
-``never``, selfTrain and data parallel raise ``NotImplementedError``
-(ROADMAP.md).
+the noise passed in.  Under ``rollout_mode="stream"`` training and
+evaluation run the continuous-batching windows of ``agents/stream.py``
+instead.  The host act/replay rollout, the combined 2B-wide program
+(``fuse_passes="auto"``, which the stream regime overrides, as in the JAX
+agent), ``remat`` other than ``never``, selfTrain and data parallel raise
+``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from dasa_tpu_torch.agents.stream import StreamMixin
 from dasa_tpu_torch.config import Config
 from dasa_tpu_torch.data.features import FeatureDB
 from dasa_tpu_torch.env import R2REnv
@@ -123,9 +126,9 @@ def _stack(recs: List[dict]) -> dict:
     return {key: torch.stack([r[key] for r in recs]) for key in recs[0]}
 
 
-class Seq2SeqAgent:
-    """Listener agent for the DASA dg path: episodic device training
-    (teacher-ML + sampled A2C) and argmax evaluation.
+class Seq2SeqAgent(StreamMixin):
+    """Listener agent for the DASA dg path: episodic or streamed device
+    training (teacher-ML + sampled A2C) and argmax evaluation.
 
     Runs on CUDA unless ``device`` names another device (the tests pass
     ``device="cpu"``).  Compute runs in ``cfg.compute_dtype`` on the card
@@ -153,7 +156,8 @@ class Seq2SeqAgent:
         # nn.Module.training
         self.policy = policy.to(self.device).eval()
         self._lstm_kernel = cfg.use_pallas != "never"
-        self.optimizer = ComponentOptimizer(cfg, self.policy)
+        self.optimizer = ComponentOptimizer(self._scaled_lr_cfg(),
+                                            self.policy)
         self._seed = cfg.seed + rng_seed
         self._gen = torch.Generator(device=self.device)
         self._rollout_counter = 0
@@ -172,6 +176,32 @@ class Seq2SeqAgent:
         self._dev_env_cache: Dict[int, tuple] = {}
         self.results: Dict[str, dict] = {}
         self.total_env_steps = 0  # (episode, step) pairs processed
+
+    def _scaled_lr_cfg(self) -> Config:
+        """The optimizer's config.  ``lr_scale_rule="sqrt"`` under stream
+        (seq2seq.py:192-211): one stream update covers W * S agent-steps
+        against the episodic pair's 2B * mean length, so lr is scaled by
+        sqrt(k) and the schedule's iterations by 1 / k, with k = window
+        steps / mean episode length (at least 1).  Records
+        ``applied_lr_schedule``."""
+        cfg = self.cfg
+        if cfg.lr_scale_rule == "sqrt" and cfg.rollout_mode == "stream":
+            k = max(1.0, (cfg.stream_steps or cfg.max_action)
+                    / self._stream_mean_len())
+            cfg = cfg.replace(
+                lr=cfg.lr * float(np.sqrt(k)),
+                warm_steps=int(np.ceil(cfg.warm_steps / k)),
+                decay_start=int(np.ceil(cfg.decay_start / k)),
+                decay_intervals=max(1, round(cfg.decay_intervals / k)))
+            print(f"lr_scale_rule=sqrt: k={k:.2f} lr={cfg.lr:.3g} "
+                  f"warm={cfg.warm_steps} "
+                  f"decay={cfg.decay_start}/{cfg.decay_intervals}",
+                  flush=True)
+        self.applied_lr_schedule = {
+            "lr": cfg.lr, "warm_steps": cfg.warm_steps,
+            "decay_start": cfg.decay_start,
+            "decay_intervals": cfg.decay_intervals}
+        return cfg
 
     @property
     def tables(self):
@@ -317,18 +347,21 @@ class Seq2SeqAgent:
     def test(self, use_dropout: bool = False, feedback: str = "argmax",
              iters: Optional[int] = None) -> List[dict]:
         """Loop device eval batches until the dataset wraps
-        (BaseAgent.test, agent_dg.py:58-100).  Only the argmax,
-        dropout-free, whole-split evaluation is ported."""
+        (BaseAgent.test, agent_dg.py:58-100), or stream the split through
+        the slots under ``rollout_mode="stream"`` (seq2seq.py:2158-2161).
+        Only the argmax, dropout-free, whole-split evaluation is ported."""
         if (feedback != "argmax" or use_dropout or iters is not None
-                or not self.use_device_rollout()
-                or self.cfg.rollout_mode == "stream"):
+                or not self.use_device_rollout()):
             raise NotImplementedError(
                 "Seq2SeqAgent.test: only the argmax device evaluation of a "
-                "whole split is ported (no dropout, iters, submit, host "
-                "rollout or streamed eval; ROADMAP.md)")
+                "whole split is ported (no dropout, iters, submit or host "
+                "rollout; ROADMAP.md)")
         self.results = {}
         env = self.env
         env.reset_epoch(shuffle=False)
+        if self.use_stream_rollout():
+            self.stream_test_loop()
+            return list(self.results.values())
         for _ in range(env.size() // env.batch_size + 2):
             self._device_test_batch()
             if len(self.results) >= env.size():
@@ -354,9 +387,7 @@ class Seq2SeqAgent:
         if not self.use_device_rollout():
             missing.append("the host act/replay rollout (device_rollout="
                            "never, submit, or an env without graphs)")
-        if cfg.rollout_mode == "stream":
-            missing.append("the stream regime (rollout_mode=stream)")
-        if cfg.fuse_passes != "never":
+        if cfg.fuse_passes != "never" and not self.use_stream_rollout():
             missing.append("the combined 2B-wide program (fuse_passes=auto)")
         if cfg.remat != "never":
             missing.append(f"remat={cfg.remat!r}")
@@ -366,7 +397,7 @@ class Seq2SeqAgent:
             raise NotImplementedError(
                 "Seq2SeqAgent training: " + "; ".join(missing)
                 + " is not ported (ROADMAP.md); the port trains the "
-                "episodic device regime")
+                "episodic and the streamed device regimes")
 
     def _rollout_generator(self) -> torch.Generator:
         """The generator of the next rollout, reseeded from (seed, rollout
@@ -676,13 +707,16 @@ class Seq2SeqAgent:
         (seq2seq.py:1912, agent_dg.py:1347-1384): a teacher pass at
         ``teacher_weight``, or a teacher-ML pass at ``ml_weight``
         (default ``cfg.ml_weight``; the aug alternation passes the org /
-        aug weights) followed by a sampled A2C pass."""
+        aug weights) followed by a sampled A2C pass; under stream, one
+        streamed window instead of the pair (seq2seq.py:1936-1944)."""
         cfg = self.cfg
         if ml_weight is None:
             ml_weight = cfg.ml_weight
         if feedback == "teacher":
             self.device_rollout(train_ml=cfg.teacher_weight, train_rl=False,
                                 feedback="teacher")
+        elif feedback == "sample" and self.use_stream_rollout():
+            self.device_rollout_stream(ml_weight, feedback="sample")
         elif feedback == "sample":
             self.device_rollout(train_ml=ml_weight, train_rl=False,
                                 feedback="teacher")
@@ -702,11 +736,15 @@ class Seq2SeqAgent:
     def train(self, n_iters: int, feedback: str = "teacher") -> None:
         """``n_iters`` optimizer iterations (seq2seq.py:1990): zero_grad,
         the teacher pass (and, under ``sample``, the sampled A2C pass after
-        a teacher-ML pass at ``ml_weight`` unless it is 0), optim_step."""
+        a teacher-ML pass at ``ml_weight`` unless it is 0; under stream,
+        one streamed window), optim_step."""
         for _ in range(n_iters):
             self.zero_grad()
             if feedback == "teacher":
                 self.accumulate_gradient("teacher")
+            elif feedback == "sample" and self.use_stream_rollout():
+                self.device_rollout_stream(self.cfg.ml_weight,
+                                           feedback="sample")
             elif feedback == "sample":
                 if self.cfg.ml_weight != 0:
                     self.device_rollout(train_ml=self.cfg.ml_weight,

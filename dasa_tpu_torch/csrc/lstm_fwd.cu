@@ -52,6 +52,16 @@
 // on N (25% fewer MACs, more ldmatrix) by 4-8%, and Wh fragments held in
 // registers spilled and lost.
 //
+// Batches of 33-64 rows (the stream regime's 2B slots): the h row grows
+// to the batch's m16 tiles, which leaves no room for both directions'
+// weights, so each direction takes its own launch of 128 CTAs of 8 units,
+// one after the other on the stream (dasa_lstm_fwd loops over them).  At
+// B = 49-64 the k groups' partial sums do not fit beside the row and go
+// inside it: the row is dead between the product and the announcement
+// (the next row lands only after this CTA has announced), so the sums
+// take it after one more barrier, and a proxy fence orders them before
+// the next bulk copy.  Batches of at most 32 rows run as above.
+//
 // Every CTA must be resident at once, or the exchange deadlocks: the
 // launch is cooperative, which the driver refuses for a grid that cannot
 // be resident (ops/lstm.py:fwd_plan first checks the CTAs against the SMs
@@ -69,26 +79,37 @@ constexpr int kConsumerWarps = 8;
 constexpr int kConsumers = kConsumerWarps * 32;
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
 constexpr int kPad = 8;                    // bf16 elements of row padding
-constexpr int kMaxB = 32;                  // two m16 tiles of batch rows
-constexpr int kMaxItems = kMaxB * 16 / kConsumers;  // (b, u) per thread
+constexpr int kMaxB = 64;                  // four m16 tiles of batch rows
+constexpr int kPairMaxB = 32;              // both directions in one launch
+constexpr int kMaxItems = 2;               // (b, u) per thread: B U <= 512
+constexpr int kMaxSmem = 232448;           // dynamic shared memory a block
 constexpr int kCounterStride = 32;         // u32 between the counters
 
 struct Layout {
   size_t ws, hb, xwp, mask, red, bars, total;
+  bool alias;  // the partial sums inside the h row
 };
 
-// U units per CTA
+// U units per CTA; the h row holds 32 batch rows, or the batch's m16 tiles
 __host__ __device__ inline Layout fwd_layout(int T, int B, int H, int U) {
   const size_t ldw = H + kPad;
   const size_t kg = 32 / U;  // k groups: 8 warps over U / 4 gate blocks
+  const size_t rows = B <= kPairMaxB ? kPairMaxB : (B + 15) / 16 * 16;
+  const size_t red = kg * B * (4 * U + 4) * sizeof(float);
   Layout l;
   l.ws = 0;
   l.hb = dasa::align_up(l.ws + 4 * U * ldw * sizeof(bf16), 128);
-  l.xwp = dasa::align_up(l.hb + (size_t)kMaxB * H * sizeof(bf16), 128);
+  l.xwp = dasa::align_up(l.hb + rows * H * sizeof(bf16), 128);
   l.mask = dasa::align_up(l.xwp + 2 * B * 4 * U * sizeof(bf16), 128);
   l.red = dasa::align_up(l.mask + (size_t)T * B * sizeof(bf16), 128);
-  l.bars = dasa::align_up(l.red + kg * B * (4 * U + 4) * sizeof(float), 128);
+  l.bars = dasa::align_up(l.red + red, 128);
   l.total = dasa::align_up(l.bars + 2 * sizeof(uint64_t), 128);
+  l.alias = l.total > (size_t)kMaxSmem && red <= rows * H * sizeof(bf16);
+  if (l.alias) {
+    l.bars = l.red;
+    l.red = l.hb;
+    l.total = dasa::align_up(l.bars + 2 * sizeof(uint64_t), 128);
+  }
   return l;
 }
 
@@ -105,6 +126,7 @@ struct FwdArgs {
   bf16* xr;          // (dirs, T + 1, B, H): the exchange copy, swizzled
   uint32_t* ready;   // (dirs) counters, kCounterStride apart
   int T, B, H;
+  int d0;            // the launch's first direction
 };
 
 // sigmoid and tanh from the fast exp: bf16 outputs, f32 carry
@@ -115,8 +137,9 @@ __device__ __forceinline__ float ftanh(float x) {
   return 2.0f * fsig(2.0f * x) - 1.0f;
 }
 
-// MT blocks of 16 gate rows (U = 4 MT units)
-template <int MT>
+// MT blocks of 16 gate rows (U = 4 MT units), at most MB m16 tiles of
+// batch rows
+template <int MT, int MB>
 __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
   constexpr int U = 4 * MT;
   constexpr int KG = kConsumerWarps / MT;
@@ -125,7 +148,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
   const int T = a.T, B = a.B, H = a.H;
   const Layout l = fwd_layout(T, B, H, U);
   bf16* ws = reinterpret_cast<bf16*>(smem + l.ws);      // [4U][ldw]
-  bf16* hb = reinterpret_cast<bf16*>(smem + l.hb);      // [kMaxB][H]
+  bf16* hb = reinterpret_cast<bf16*>(smem + l.hb);      // [rows][H]
   bf16* xwp = reinterpret_cast<bf16*>(smem + l.xwp);    // [2][B][4U]
   bf16* msk = reinterpret_cast<bf16*>(smem + l.mask);   // [T][B]
   float* red = reinterpret_cast<float*>(smem + l.red);  // [KG][B][NJ]
@@ -136,7 +159,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
   const int G = 4 * H;
   const int ldw = H + kPad;
   const int ctas_dir = H / U;
-  const int d = blockIdx.x / ctas_dir;
+  const int d = a.d0 + blockIdx.x / ctas_dir;
   const int u0 = (blockIdx.x % ctas_dir) * U;
   const uint32_t row_bytes = B * H * sizeof(bf16);
   const bf16* wt = d == 0 ? a.wt0 : a.wt1;
@@ -223,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
 
   // Warp w: gate block mw (16 gate rows, two n8 tiles), k group kg (the
   // kg-th of KG equal ranges of k16 steps).  Fixed per-lane ldmatrix
-  // addresses: B = two n8 tiles of Wh rows; A = h rows b = lane % 16 (+ 16),
+  // addresses: B = two n8 tiles of Wh rows; A = h rows b = lane % 16 (+ 16 m),
   // whose 16-byte group 2 k + hi sits at (2 k + hi) ^ (b % 8)
   const int mw = warp % MT, kg = warp / MT;
   const int ksteps = H / 16 / KG;
@@ -238,9 +261,9 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
   for (int t = 0; t < T; ++t) {
     const int buf = t & 1;
     // gates[b, j] = h[b, :] . Wh^T[j, :] for this warp's k range
-    float acc[2][2][4];
+    float acc[MB][2][4];
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < MB; ++m)
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
@@ -248,15 +271,15 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
     dasa::mbar_wait(full, t & 1);
 #pragma unroll 4
     for (int k = k0; k < k0 + ksteps; ++k) {
-      uint32_t wb[4], ha[2][4];
+      uint32_t wb[4], ha[MB][4];
       dasa::ldmatrix_x4(wb, w_lane + (k - k0) * 32);
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
+      for (int m = 0; m < MB; ++m)
         if (m < mtb)
           dasa::ldmatrix_x4(ha[m], h_lane + m * 16 * H * 2 +
                                        (((2 * k + hi) ^ r8) << 4));
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
+      for (int m = 0; m < MB; ++m) {
         if (m < mtb) {
           dasa::mma_16816(acc[m][0], ha[m], wb);
           dasa::mma_16816(acc[m][1], ha[m], wb + 2);
@@ -265,12 +288,14 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
     }
     __syncwarp();
     if (lane == 0) dasa::mbar_arrive(empty);
+    // the sums overwrite the row: every warp's product must be done
+    if (l.alias) dasa::named_barrier(1, kConsumers);
 
     // the k groups' partial sums: red[kg][b][j], j = gate row q U + u;
     // acc[m][n]: batch rows 16 m + lane / 4 (+ 8), gate rows of n8 tile n
     float* rw = red + (size_t)kg * B * NJ;
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < MB; ++m) {
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
 #pragma unroll
@@ -315,6 +340,8 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
       gv[it][3] = og;
       if (t + 1 < T) *xr_at(t + 1, b, u0 + u) = dasa::to_bf(hs[it]);
     }
+    // the next bulk copy rewrites the row the sums were read from
+    if (l.alias) dasa::fence_proxy_async_shared();
     if (t + 1 < T) announce();
 
     // outputs, off the chain
@@ -336,10 +363,10 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
   }
 }
 
-template <int MT>
+template <int MT, int MB>
 cudaError_t launch(const FwdArgs& a, int ctas, size_t smem, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(
-      lstm_fwd_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_fwd_kernel<MT, MB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
@@ -352,7 +379,7 @@ cudaError_t launch(const FwdArgs& a, int ctas, size_t smem, cudaStream_t s) {
   cfg.stream = s;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, lstm_fwd_kernel<MT>, a);
+  return cudaLaunchKernelEx(&cfg, lstm_fwd_kernel<MT, MB>, a);
 }
 
 }  // namespace
@@ -369,9 +396,10 @@ extern "C" int dasa_lstm_fwd(const void* xw, const void* mask, const void* h0,
                              int dirs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || B > kMaxB || (U != 8 && U != 16) || H % 64 || dirs < 1 ||
-      dirs > 2)
+      dirs > 2 || (B > kPairMaxB && U != 8))
     return cudaErrorInvalidValue;
   const size_t smem = fwd_layout(T, B, H, U).total;
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t e =
       cudaMemsetAsync(ready, 0, dirs * kCounterStride * sizeof(uint32_t), s);
   if (e != cudaSuccess) return e;
@@ -390,8 +418,16 @@ extern "C" int dasa_lstm_fwd(const void* xw, const void* mask, const void* h0,
   a.T = T;
   a.B = B;
   a.H = H;
-  const int ctas = dirs * H / U;
-  e = U == 8 ? launch<2>(a, ctas, smem, s) : launch<4>(a, ctas, smem, s);
-  if (e != cudaSuccess) return e;
+  // both directions in one launch, or (B > kPairMaxB) one launch each
+  const int per_launch = B <= kPairMaxB ? dirs : 1;
+  const int ctas = per_launch * H / U;
+  for (a.d0 = 0; a.d0 < dirs; a.d0 += per_launch) {
+    if (B > kPairMaxB)
+      e = launch<2, 4>(a, ctas, smem, s);
+    else
+      e = U == 8 ? launch<2, 2>(a, ctas, smem, s)
+                 : launch<4, 2>(a, ctas, smem, s);
+    if (e != cudaSuccess) return e;
+  }
   return cudaGetLastError();
 }

@@ -100,59 +100,77 @@ def bwd_plan(t_len: int, b: int, hd: int, n_sm: int) -> BwdPlan:
 
 
 # csrc/lstm_fwd.cu: threads (8 consumer warps + a producer warp), row
-# padding of the resident Wh rows, batch rows (two m16 tiles), and the
-# units a CTA may own (the fewest that fit the SMs)
+# padding of the resident Wh rows, batch rows (four m16 tiles), the most
+# batch rows both directions take in one launch, and the units a CTA may
+# own (the fewest that fit the SMs)
 FWD_THREADS = 288
 FWD_PAD = 8
-FWD_MAX_B = 32
+FWD_MAX_B = 64
+FWD_PAIR_MAX_B = 32
 FWD_UNITS = (8, 16)
 
 
 class FwdPlan(NamedTuple):
     units: int            # hidden units per CTA
-    ctas: int             # dirs * H / units
+    ctas: int             # CTAs per launch: directions per launch * H / units
     smem: int             # dynamic shared memory per CTA, bytes
+    launches: int         # 1, or one launch per direction (B > 32)
+
+
+def _fwd_rows(b: int) -> int:
+    """Batch rows of the kernel's h row: 32, or the batch's m16 tiles."""
+    return FWD_PAIR_MAX_B if b <= FWD_PAIR_MAX_B else (b + 15) // 16 * 16
 
 
 def _fwd_smem(t_len: int, b: int, hd: int, units: int) -> int:
-    """Bytes of shared memory of ``lstm_fwd.cu:fwd_layout``."""
+    """Bytes of shared memory of ``lstm_fwd.cu:fwd_layout``: when the k
+    groups' partial sums do not fit beside the h row, they go inside it."""
+    row = _fwd_rows(b) * hd * 2
+    sums = (32 // units) * b * (4 * units + 4) * 4
     total = _align(4 * units * (hd + FWD_PAD) * 2)        # Wh rows
-    total = _align(total + FWD_MAX_B * hd * 2)             # the h row
+    total = _align(total + row)                            # the h row
     total = _align(total + 2 * b * 4 * units * 2)          # xw prefetch
     total = _align(total + t_len * b * 2)                  # mask
-    total = _align(total + (32 // units) * b * (4 * units + 4) * 4)  # sums
-    return _align(total + 2 * 8)                           # mbarriers
+    if _align(_align(total + sums) + 2 * 8) > _build.MAX_SMEM and sums <= row:
+        return _align(total + 2 * 8)                       # sums in the row
+    return _align(_align(total + sums) + 2 * 8)            # sums, mbarriers
 
 
 def fwd_plan(t_len: int, b: int, hd: int, n_sm: int, dirs: int = 1
              ) -> FwdPlan:
     """Launch plan of ``csrc/lstm_fwd.cu`` for ``dirs`` independent
-    recurrences in one launch; raises on shapes it cannot take, naming the
-    constraint.  Every CTA must be resident at once (the launch is
-    cooperative), so the plan takes the fewest units per CTA (8, else 16)
-    that keep the grid within one CTA per SM."""
+    recurrences; raises on shapes it cannot take, naming the constraint.
+    Every CTA must be resident at once (the launch is cooperative), so the
+    plan takes the fewest units per CTA (8, else 16) that keep the grid
+    within one CTA per SM.  Up to 32 batch rows, both directions share one
+    launch; above, the h row outgrows the room beside both directions'
+    weights, and each direction takes its own launch of 8 units a CTA."""
     if hd % 64:
         raise ValueError(f"lstm_scan: H={hd} must be a multiple of 64 "
                          "(k ranges of the 8 warps, swizzle groups of h)")
     if not 1 <= b <= FWD_MAX_B:
         raise ValueError(f"lstm_scan: B={b} must lie in 1..{FWD_MAX_B} "
-                         "(two m16 tiles of batch rows)")
+                         "(four m16 tiles of batch rows)")
     if dirs not in (1, 2):
         raise ValueError(f"lstm_scan: {dirs} directions; one or two")
-    units = next((u for u in FWD_UNITS if dirs * hd // u <= n_sm), None)
+    pair = b <= FWD_PAIR_MAX_B
+    per_launch = dirs if pair else 1
+    choices = FWD_UNITS if pair else FWD_UNITS[:1]
+    units = next((u for u in choices if per_launch * hd // u <= n_sm), None)
     if units is None:
         raise ValueError(
-            f"lstm_scan: {dirs} direction(s) of H={hd} need "
-            f"{dirs * hd // FWD_UNITS[-1]} CTAs resident at once "
-            f"({FWD_UNITS[-1]} units each), more than the {n_sm} SMs")
+            f"lstm_scan: {per_launch} direction(s) of H={hd} in a launch "
+            f"need {per_launch * hd // choices[-1]} CTAs resident at once "
+            f"({choices[-1]} units each), more than the {n_sm} SMs")
     smem = _fwd_smem(t_len, b, hd, units)
     if smem > _build.MAX_SMEM:
         raise ValueError(
             f"lstm_scan: T={t_len}, B={b}, H={hd} needs {smem} bytes of "
             f"shared memory per CTA, more than the {_build.MAX_SMEM} a block "
-            f"may use (Wh rows {8 * units} H, the h row {2 * FWD_MAX_B} H, "
-            "the mask 2 T B)")
-    return FwdPlan(units, dirs * hd // units, smem)
+            f"may use (Wh rows {8 * units} H, the h row "
+            f"{2 * _fwd_rows(b)} H, the mask 2 T B)")
+    return FwdPlan(units, per_launch * hd // units, smem,
+                   dirs // per_launch)
 
 
 def _fwd_ref(xw, mask, h0, c0, wh):
@@ -243,7 +261,7 @@ def _fwd_launch(xw, mask, h0, c0, wts, with_acts):
     _build.require_cuda("lstm_scan", xw=xw, mask=mask, h0=h0, c0=c0,
                         **{f"wh[{d}]": w for d, w in enumerate(wts)})
     plan = fwd_plan(t_len, b, hd, _build.sm_count(xw), dirs)
-    lib = _build.library()
+    lib = _build.library()  # dasa_lstm_fwd makes the plan's launches
     h_seq = torch.empty(dirs, t_len, b, hd, dtype=xw.dtype, device=xw.device)
     c_seq = torch.empty_like(h_seq)
     acts = torch.empty_like(xw) if with_acts else None
@@ -258,7 +276,7 @@ def _fwd_launch(xw, mask, h0, c0, wts, with_acts):
         xr.data_ptr(), ready.data_ptr(), t_len, b, hd, plan.units, dirs,
         _build.stream_of(xw))
     _build.check(rc, "lstm_scan")
-    return h_seq, c_seq, acts
+    return h_seq, c_seq, acts, plan.launches
 
 
 def lstm_scan(xw, mask, h0, c0, wh, with_acts: bool = False):
@@ -279,10 +297,10 @@ def lstm_scan(xw, mask, h0, c0, wh, with_acts: bool = False):
     _check_shapes("lstm_scan", t_len, b, hd, xw=(xw.shape, (t_len, b, 4 * hd)),
                   mask=(mask.shape, (t_len, b)), h0=(h0.shape, (b, hd)),
                   c0=(c0.shape, (b, hd)), wh=(wh.shape, (hd, 4 * hd)))
-    h_seq, c_seq, acts = _fwd_launch(
+    h_seq, c_seq, acts, launches = _fwd_launch(
         *(x.contiguous()[None] for x in (xw, mask, h0, c0)),
         [wh.t().contiguous()], with_acts)
-    lstm_scan.launches += 1
+    lstm_scan.launches += launches
     if with_acts:
         return h_seq[0], c_seq[0], acts[0]
     return h_seq[0], c_seq[0]
@@ -383,7 +401,8 @@ def bilstm_scan(xw, mask, h0, c0, wh, with_acts: bool = False):
     weights without a stacked copy).  Returns stacked (h_seq, c_seq)
     (2, T, B, H), plus the gate activations (2, T, B, 4H) when
     ``with_acts``.  CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/lstm_fwd.cu`` with each direction on its own CTAs, or raise.
+    ``csrc/lstm_fwd.cu`` with each direction on its own CTAs (one launch up
+    to 32 batch rows, one per direction above), or raise.
     Each direction's wh may be the transposed view of a contiguous
     (4H, H) tensor, read without a copy."""
     _build.refuse_grad("bilstm_scan", xw, mask, h0, c0, *wh)
@@ -398,10 +417,11 @@ def bilstm_scan(xw, mask, h0, c0, wh, with_acts: bool = False):
                   h0=(h0.shape, (2, b, hd)), c0=(c0.shape, (2, b, hd)),
                   wh=((len(wh), *wh[0].shape, *wh[-1].shape),
                       (2, hd, 4 * hd, hd, 4 * hd)))
-    out = _fwd_launch(*(x.contiguous() for x in (xw, mask, h0, c0)),
-                      [wh[d].t().contiguous() for d in range(2)], with_acts)
-    bilstm_scan.launches += 1
-    return out if with_acts else out[:2]
+    *out, launches = _fwd_launch(
+        *(x.contiguous() for x in (xw, mask, h0, c0)),
+        [wh[d].t().contiguous() for d in range(2)], with_acts)
+    bilstm_scan.launches += launches
+    return tuple(out) if with_acts else tuple(out[:2])
 
 
 bilstm_scan.launches = 0

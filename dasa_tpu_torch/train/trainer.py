@@ -138,8 +138,10 @@ def train(cfg: Config, world: Optional[World] = None, device=None,
     iterations in intervals of ``log_every``, validation every
     ``val_every``, checkpoints every ``save_every`` and at the end.  With
     an aug env each iteration accumulates the org env's pass pair at
-    ``ml_weight_org`` and the aug env's at ``ml_weight_aug``.  ``agent``
-    reuses an agent built by :func:`make_agent`."""
+    ``ml_weight_org`` and the aug env's at ``ml_weight_aug``; under
+    ``rollout_mode="stream"`` an iteration is one streamed window per env,
+    each env keeping its own stream.  ``agent`` reuses an agent built by
+    :func:`make_agent`."""
     if cfg.self_train:
         raise NotImplementedError(
             "selfTrain (speaker back-translation) comes with the speaker "
@@ -185,8 +187,10 @@ def train(cfg: Config, world: Optional[World] = None, device=None,
             timer.toc("train")
             timer.step()
 
+            # the scalar logs (the stream's per-half counters are not)
             logs = {key: [float(v) for v in vals]
-                    for key, vals in agent.logs.items()}
+                    for key, vals in agent.logs.items()
+                    if key != "stream_consumed"}
             total = max(sum(logs.get("total", [])), 1)
             for tag in ("loss", "ml_loss", "forth_loss", "rl_loss"):
                 if logs.get(tag):

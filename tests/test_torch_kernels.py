@@ -154,6 +154,43 @@ def test_lstm_fwd_two_directions_match_plain_on_card(cuda, b, h, t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 16, 80])
+@pytest.mark.parametrize("b", [33, 40, 64])
+def test_lstm_fwd_stream_width_matches_plain_on_card(cuda, b, t):
+    """More than 32 batch rows (the stream window's 40 slots): one launch
+    per direction, the h row sized to the batch, at 64 rows the partial
+    sums inside it."""
+    args = _fwd_inputs(6, t, b, 1024, 2)
+    ref = bilstm_scan_ref(*args)
+    _check_fwd(bilstm_scan(*args, with_acts=True), ref)
+    _check_fwd(bilstm_scan(*args), ref[:2])
+    _check_fwd(lstm_scan(*(x[1].clone() for x in args), with_acts=True),
+               tuple(r[1] for r in ref))
+
+
+@pytest.mark.cuda
+def test_bilstm_scan_fn_grads_at_the_stream_width_on_card(cuda):
+    """BiLstmScanFn at the stream window's 40 rows and H = 1024: K1 one
+    launch per direction forward, K2 backward."""
+    xw, mask, h0, c0, wh = _fwd_inputs(8, 16, 40, 1024, 2)
+    g = torch.Generator().manual_seed(2)
+    cots = tuple((torch.randn(2, 16, 40, 1024, generator=g) * 0.1).cuda()
+                 .bfloat16() for _ in range(2))
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in (xw, h0, c0, wh)]
+        out = fn(leaves[0], mask, *leaves[1:])
+        return torch.autograd.grad(out[:2], leaves, cots)
+
+    for got, ref in zip(grads(bilstm_scan_fn), grads(bilstm_scan_ref)):
+        _rel_close(got, ref, 5e-2)
+    lib = _build.library()
+    for b in (33, 40, 64):
+        p = fwd_plan(80, b, 1024, 132, 2)
+        assert lib.dasa_lstm_fwd_smem(80, b, 1024, p.units) == p.smem
+
+
+@pytest.mark.cuda
 def test_bilstm_scan_fn_grads_track_plain_autograd_on_card(cuda):
     xw, mask, h0, c0, wh = _fwd_inputs(5, 16, 20, 256, 2)
     g = torch.Generator().manual_seed(1)

@@ -33,6 +33,7 @@ from dasa_tpu_torch.ops.lstm import (
     BWD_UNITS,
     FWD_MAX_B,
     FWD_PAD,
+    FWD_PAIR_MAX_B,
     FWD_THREADS,
     FWD_UNITS,
     _bwd_smem,
@@ -181,7 +182,7 @@ def test_small_and_long_fwd_shapes_plan(t, b, h, dirs):
 
 @pytest.mark.parametrize("args,match", [
     ((80, 20, 1000, H100_SMS, 1), "multiple of 64"),
-    ((80, 33, 1024, H100_SMS, 1), "1..32"),
+    ((80, 65, 1024, H100_SMS, 1), "1..64"),
     ((80, 20, 1024, H100_SMS, 3), "one or two"),
     ((80, 20, 2048, H100_SMS, 2), "SMs"),
     ((80, 20, 1024, 32, 2), "SMs"),
@@ -190,6 +191,39 @@ def test_small_and_long_fwd_shapes_plan(t, b, h, dirs):
 def test_lstm_fwd_plan_refuses_shapes_naming_the_constraint(args, match):
     with pytest.raises(ValueError, match=match):
         fwd_plan(*args)
+
+
+@pytest.mark.parametrize("b", [20, 32, 40, 64])
+def test_lstm_fwd_plans_fit_the_stream_width(b):
+    """The stream window's 2B = 40 slot rows, and up to 64: a BiLSTM
+    plans within a block's shared memory; up to 32 rows both directions
+    share one launch of 128 CTAs, above each direction takes its own
+    launch of 128 CTAs of 8 units."""
+    plan = fwd_plan(80, b, 1024, H100_SMS, 2)
+    assert plan.smem == _fwd_smem(80, b, 1024, plan.units) <= _build.MAX_SMEM
+    assert plan.ctas == 128
+    if b <= 32:
+        assert (plan.units, plan.launches) == (16, 1)
+    else:
+        assert (plan.units, plan.launches) == (8, 2)
+        assert fwd_plan(80, b, 1024, H100_SMS, 1) == plan._replace(
+            launches=1)
+
+
+def test_lstm_fwd_sums_go_inside_the_h_row_only_when_they_must():
+    """At 64 rows the k groups' partial sums (36 KiB) do not fit beside
+    the 128 KiB h row and share it; at 40 rows they sit beside it."""
+    row, sums = 64 * 1024 * 2, 4 * 64 * 36 * 4
+    apart = fwd_plan(80, 40, 1024, H100_SMS, 2).smem
+    shared = fwd_plan(80, 64, 1024, H100_SMS, 2).smem
+    assert shared + sums > _build.MAX_SMEM >= shared
+    assert shared - apart < row - 48 * 1024 * 2
+
+
+def test_fwd_pair_limit_uses_the_constants_of_the_cuda_source():
+    _text, k1 = _constants("lstm_fwd.cu")
+    assert k1["kPairMaxB"] == FWD_PAIR_MAX_B
+    assert k1["kMaxSmem"] == _build.MAX_SMEM
 
 
 def test_fwd_and_shift_plans_use_the_constants_of_the_cuda_sources():

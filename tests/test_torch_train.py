@@ -334,7 +334,7 @@ def test_same_seed_same_gradients(world):
 
 
 @pytest.mark.parametrize("option", [
-    dict(device_rollout="never"), dict(rollout_mode="stream"),
+    dict(device_rollout="never"), dict(self_train=True),
     dict(fuse_passes="auto"), dict(remat="percept")])
 def test_unported_training_paths_raise(world, option):
     agent = port_agent(world, **option)

@@ -6,6 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py            # every phase, as the check runs it
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,stream,stream-eval
+    python3 chip_smoke.py --phases build,kernels,speaker,speaker-compare,selftrain
 
 Phases:
   1. build — print the card's name and power limit, build the CUDA
@@ -26,7 +27,10 @@ Phases:
      forward is timed for one direction, for both directions in one
      launch with and without the gate activations, and as two
      one-direction launches (at B = 40 both directions take one launch
-     each).
+     each).  Rows named ``[spk]`` hold K1 and K2 at the speaker's BiLSTM
+     (H = 256 a direction, T = 35, every token valid) for selfTrain's
+     relabel batch (B = 20) and speaker training's (``[spk,B64]``), with
+     BiLstmScanFn's gradients, against a cuDNN ``nn.LSTM(2176, 256)``.
   3. main — the launch counters set to 0, ``valid()`` (argmax evaluation
      of val_seen and val_unseen) at the full headline DASA width over a
      synthetic world, the counters read back; SR/SPL/NE per split,
@@ -58,13 +62,35 @@ Phases:
      weights: every instr_id of a split covered once (phase 3 is held to
      the same), SR/SPL/NE, episodes/s, the agent-steps/s the slots walked
      and the share of trajectories equal to phase 3's.
+  9. speaker — the launch counters set to 0, ``train_speaker()`` for 4
+     iterations at batch 64 and ``valid_speaker()`` on both val splits at
+     the speaker's Config widths (rnn_dim 512, wemb 256, max_decode 120)
+     under ``use_pallas="always"``, over a world of 66 items a split, the
+     counters read back.  Fails unless K1 and K2 launched, every loss is
+     finite, the encoder's and decoder's parameters moved, each split's
+     BLEU is finite and in [0, 1] and every path is captioned; prints
+     seconds per iteration, the decode time per batch and the peak
+     memory.
+  10. speaker-compare — phase 9's weights under ``always`` and ``never``:
+     the first decode step's logits within the stated bf16 tolerance, and
+     the share of equal greedy instructions.
+  11. selftrain — the launch counters set to 0, the README's headline
+     command (``auglistener --selfTrain`` on the aug split, batch 20,
+     episodic, ``use_pallas="always"``, 3 optimizer steps of an org and an
+     aug pass pair, the aug batches relabelled by a speaker first), the
+     counters read back.  Fails unless all four kernels launched, every
+     relabel replaced instructions, the losses are finite, the listener's
+     parameters moved and the speaker's did not; prints seconds per
+     iteration, training agent-steps/s, the relabels' share of an
+     iteration and the peak memory.
   profile (only when named in --phases) — one eval batch, one training
      iteration and one stream window at headline width under
      torch.profiler, each after a warm-up: device time by kernel, the
      device's busy share of the wall.
 Then one ``{"kernels": [...]}`` JSON line (``launches``: the count during
 ``train()``; ``launches_eval``: during ``valid()``; ``launches_stream``:
-during ``train()`` under stream; ``ratio``: ``ms`` /
+during ``train()`` under stream; ``launches_speaker``: during phase 9;
+``launches_selftrain``: during phase 11; ``ratio``: ``ms`` /
 ``library_ms``; ``device_ms`` / ``library_device_ms``: the back-to-back
 device times), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -83,6 +109,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor-core
 # flop/s.  Bounds are stated against these with the card's power limit.
@@ -108,6 +136,16 @@ TRAIN_ITERS = 8
 # the pool sized from the mean path length (agents/stream.py)
 STREAM_W = 2 * HEADLINE["batch_size"]
 STREAM_WINDOWS = 8
+# the speaker at its Config widths (rnn_dim 512: a BiLSTM of 256 a
+# direction; input feature_all_size 2176; teacher paths of at most
+# max_action 35 steps), trained at the Config default batch of 64
+SPK_T, SPK_H, SPK_E, SPK_B = 35, 256, 2176, 64
+SPEAKER = dict(rnn_dim=512, wemb=256, max_decode=120, bidir=True,
+               featdropout=0.4, optim="rms", lr=1e-4)
+SPK_ITERS = 4
+# the README's headline command: auglistener + selfTrain on the aug split
+SELFTRAIN_STEPS = 3
+SPEAKER_KERNELS = ("bilstm_scan", "lstm_scan_bwd")
 # the wrappers the main path launches (lstm_scan, K1's one-direction
 # entry, is timed in phase 2 but not on the path: the BiLSTM takes both
 # directions in one launch)
@@ -253,6 +291,14 @@ def phase_kernels(seed: int):
         else:
             check_function_grads(rnd, mask, wh, w_t, bias, w_in, w_s, b_s,
                                  mask2, wh2)
+    # the speaker's BiLSTMs: selfTrain's relabel (B = 20, both directions
+    # in one launch) and speaker training (B = 64, one launch a direction)
+    for B in (20, SPK_B):
+        tag = "spk" if B == 20 else f"spk,B{B}"
+        k1, k2, (_mask, _wh, mask2, wh2) = kernel_rows_lstm(
+            rnd, gen, B, n_sm, tag, T=SPK_T, H=SPK_H, E=SPK_E, ragged=False)
+        rows += k1 + k2
+        check_bilstm_fn_grads(rnd, mask2, wh2, f"BiLstmScanFn {tag}")
     for r in rows:
         fn, lib_fn = r.pop("fn"), r.pop("library_fn")
         # K1 and its cuDNN forward under no_grad; K2's yardstick is a
@@ -285,9 +331,13 @@ def _named(base, tag, *more):
     return f"{base}[{inner}]" if inner else base
 
 
-def kernel_rows_lstm(rnd, gen, B, n_sm, tag):
-    """K1 (one direction at B = 20 only; both directions, with and without
-    the gate activations) and K2 at batch B, T = 80, H = 1024."""
+def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
+                     ragged=True):
+    """K1 (one direction without a tag only; both directions, with and
+    without the gate activations) and K2 at batch B, T tokens, H units a
+    direction: the listener's top BiLSTM (T 80, H 1024, input 768, ragged
+    lengths) or, tagged ``spk``, the speaker's (T 35, H 256, input 2176,
+    every token valid)."""
     import torch
 
     from dasa_tpu_torch.ops.lstm import (
@@ -305,10 +355,10 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag):
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     rows = []
-    # the top BiLSTM, T=80, H=1024; the reverse direction runs on the
-    # flipped sequence, so its masked tokens come first
-    T, H, E = 80, 1024, 768
-    lengths = torch.randint(20, T + 1, (B,), generator=gen)
+    # the reverse direction runs on the flipped sequence, so its masked
+    # tokens come first
+    lengths = (torch.randint(20, T + 1, (B,), generator=gen) if ragged
+               else torch.full((B,), T))
     mask = (torch.arange(T)[:, None] < lengths[None, :]).to(dev, bf)
     mask2 = torch.stack([mask, mask.flip(0)])
     xw2 = rnd(2, T, B, 4 * H, scale=0.5)
@@ -355,9 +405,9 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag):
     b2_ms, b2_by = bound_ms(2 * n_bytes, 2 * 2.0 * T * B * H * 4 * H)
     b2a_ms, b2a_by = bound_ms(2 * n_bytes + 2 * xw2.numel(),
                               2 * 2.0 * T * B * H * 4 * H)
-    cudnn = "torch.nn.LSTM (cuDNN) on a PackedSequence, input 768 " \
-            "(includes the input projection)"
-    shape = f"T80 B{B} H1024"
+    cudnn = (f"torch.nn.LSTM (cuDNN) on a PackedSequence, input {E} "
+             "(includes the input projection)")
+    shape = f"T{T} B{B} H{H}"
     with torch.no_grad():
         if not tag:
             rows.append(dict(
@@ -604,7 +654,8 @@ def check_function_grads(rnd, mask, wh, w_ta, b_a, w_in, w_s, b_s, mask2,
              rnd(B, 36, scale=0.05).float()), 2e-2)
 
 
-def headline_world(root: str, seed: int, **overrides):
+def headline_world(root: str, seed: int, n_train: int = 10, n_val: int = 10,
+                   **overrides):
     from dasa_tpu_torch.config import Config
     from dasa_tpu_torch.data.datasets import make_synthetic_task
     from dasa_tpu_torch.testing import write_synthetic_connectivity
@@ -614,10 +665,10 @@ def headline_world(root: str, seed: int, **overrides):
     data = os.path.join(root, "task")
     write_synthetic_connectivity(conn, ["synthA", "synthB"], n_nodes=40,
                                  seed=seed)
-    make_synthetic_task(data, ["synthA"], ["synthB"], n_train=10, n_val=10,
-                        connectivity_dir=conn, seed=seed)
-    cfg = Config(**HEADLINE, data_dir=data, connectivity_dir=conn,
-                 seed=seed, **overrides)
+    make_synthetic_task(data, ["synthA"], ["synthB"], n_train=n_train,
+                        n_val=n_val, connectivity_dir=conn, seed=seed)
+    cfg = Config(**{**HEADLINE, **overrides}, data_dir=data,
+                 connectivity_dir=conn, seed=seed)
     return cfg, World(cfg)
 
 
@@ -969,6 +1020,223 @@ def phase_stream_eval(cfg, world, state, episodic, seed: int):
           f"{same}/{total} = {same / total:.3f}", flush=True)
 
 
+def phase_speaker(seed: int, root: str):
+    """train_speaker() for SPK_ITERS iterations at batch 64, then
+    valid_speaker() on both val splits, at the speaker's Config widths
+    under use_pallas="always", over a world whose splits (66 items each)
+    exceed the batch; the launch counters zeroed before, read after."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.train.trainer import (
+        make_speaker,
+        train_speaker,
+        valid_speaker,
+    )
+
+    cfg, world = headline_world(
+        os.path.join(root, "speaker"), seed, n_train=22, n_val=22,
+        batch_size=SPK_B, use_pallas="always", iters=SPK_ITERS,
+        log_every=SPK_ITERS, val_every=10 ** 9,
+        snap_dir=os.path.join(root, "snap"), log_dir=os.path.join(root, "log"),
+        name="speaker", **SPEAKER)
+    speaker = make_speaker(cfg, world)
+    before = {k: v.clone() for k, v in speaker.model.state_dict().items()}
+    run_train, run_infer = speaker.train, speaker.infer_batch
+    losses, decode_s = [], []
+
+    def timed_train(iters):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = run_train(iters)
+        torch.cuda.synchronize()
+        losses.extend(out)
+        timed_train.seconds = time.perf_counter() - start
+        return out
+
+    def timed_infer(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = run_infer(*args, **kwargs)  # ends in a copy to the host
+        decode_s.append(time.perf_counter() - start)
+        return out
+
+    speaker.train, speaker.infer_batch = timed_train, timed_infer
+    gc.collect()  # no earlier phase's agent in the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    train_speaker(cfg, world, speaker=speaker)
+    out = valid_speaker(cfg, world, speaker=speaker)
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del speaker.train, speaker.infer_batch  # the wrappers' reference cycles
+    print(f"  launches during train_speaker() + valid_speaker(): {launches}",
+          flush=True)
+    for name in SPEAKER_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} never launched in the speaker phase")
+    if len(losses) != SPK_ITERS or not all(math.isfinite(x) for x in losses):
+        fail(f"train_speaker(): losses {losses}, expected {SPK_ITERS} finite")
+    moved = [k for k, v in speaker.model.state_dict().items()
+             if not torch.equal(v, before[k])]
+    if not any(k.startswith("encoder.lstm.") for k in moved) or not any(
+            k.startswith("decoder.") for k in moved):
+        fail(f"train_speaker(): moved only {moved}")
+    for split, scores in out.items():
+        bleu = scores["bleu"]
+        if not (math.isfinite(bleu) and 0.0 <= bleu <= 1.0):
+            fail(f"valid_speaker() {split}: BLEU {bleu}")
+        for key in ("loss", "word_accu", "sent_accu"):
+            if not math.isfinite(scores[key]):
+                fail(f"valid_speaker() {split}: {key} {scores[key]}")
+        want = {item["path_id"] for item in world.envs[split].data}
+        if set(scores["path2inst"]) != want:
+            fail(f"valid_speaker() {split}: {len(scores['path2inst'])} "
+                 f"paths captioned of {len(want)}")
+        print(f"  {split}: BLEU {bleu:.4f} loss {scores['loss']:.4f} word "
+              f"accuracy {scores['word_accu']:.4f}, {len(want)} paths "
+              "captioned", flush=True)
+    print(f"  train_speaker(): losses {[round(x, 4) for x in losses]}, "
+          f"{timed_train.seconds / SPK_ITERS:.4f} s an iteration at B "
+          f"{SPK_B}; decode (up to {cfg.max_decode} words, teacher path "
+          f"included) s a batch {[round(x, 4) for x in decode_s]}; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; card {card_name()}", flush=True)
+    state = {k: v.to("cpu", copy=True)
+             for k, v in speaker.model.state_dict().items()}
+    return launches, cfg, world, state
+
+
+def phase_speaker_compare(cfg, world, state):
+    """The same speaker weights under use_pallas always and never: the
+    first decode step's logits and the greedy instructions of val_unseen's
+    first batch."""
+    import torch
+
+    from dasa_tpu_torch.train.trainer import make_speaker
+
+    env = world.envs["val_unseen"]
+    logits, words = [], []
+    for mode in ("always", "never"):
+        speaker = make_speaker(cfg.replace(use_pallas=mode), world)
+        speaker.model.load_state_dict(state)
+        speaker.env = env
+        env.reset_epoch()
+        env.reset()
+        logits.append(speaker.first_step_logits())
+        env.reset_epoch()
+        env.reset()
+        words.append(speaker.infer_batch())
+        del speaker
+    # the kernel path keeps both BiLSTMs' carry in f32 where the plain
+    # path rounds it to bf16 every token: a few bf16 ulps of the logits'
+    # scale
+    check_close("speaker first-step logits always vs never", logits[0],
+                logits[1], 0.0, 5e-2)
+    same = sum(bool((a == b).all()) for a, b in zip(*words))
+    print(f"  greedy instructions equal always vs never: {same}/"
+          f"{len(words[0])} = {same / len(words[0]):.3f}", flush=True)
+
+
+def phase_selftrain(cfg, seed: int, root: str):
+    """The README's headline command: auglistener with selfTrain
+    back-translation on the aug split, batch 20, episodic, under
+    use_pallas="always", SELFTRAIN_STEPS optimizer steps; the speaker is
+    built on the listener world's vocabulary (random weights from the
+    seed).  The launch counters zeroed before, read after."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.train.trainer import (
+        World,
+        make_agent,
+        make_speaker,
+        train,
+    )
+
+    cfg = cfg.replace(aug="aug", self_train=True, accumulate_grad=True,
+                      iters=2 * SELFTRAIN_STEPS, log_every=2,
+                      val_every=10 ** 9, save_every=10 ** 9,
+                      snap_dir=os.path.join(root, "snap"),
+                      log_dir=os.path.join(root, "log"), name="selftrain")
+    world = World(cfg)
+    agent = make_agent(cfg, world, rng_seed=seed)
+    speaker = make_speaker(cfg, world)
+    trained = ("encoder.lstm.", "decoder.", "critic.", "adain.")
+    before = {name: p.detach().clone()
+              for name, p in agent.policy.named_parameters()
+              if name.startswith(trained)}
+    sp_before = {k: v.clone() for k, v in speaker.model.state_dict().items()}
+    relabel, step = speaker.relabel_batch, agent.optim_step
+    relabel_s, replaced, step_at = [], [], []
+
+    def timed_relabel(env, *args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        orig = [item["instr_encoding"] for item in env.batch]
+        obs = relabel(env, *args)
+        torch.cuda.synchronize()
+        relabel_s.append(time.perf_counter() - start)
+        replaced.append(sum(not np.array_equal(item["instr_encoding"], o)
+                            for item, o in zip(env.batch, orig)))
+        return obs
+
+    def timed_step():
+        step()
+        torch.cuda.synchronize()
+        step_at.append(time.perf_counter())
+
+    speaker.relabel_batch, agent.optim_step = timed_relabel, timed_step
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    start = time.perf_counter()
+    train(cfg, world, agent=agent, speaker=speaker)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del speaker.relabel_batch, agent.optim_step
+    print(f"  launches during train() with selfTrain: {launches}", flush=True)
+    for name in PATH_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} never launched during selfTrain train()")
+    if agent.iter_count != SELFTRAIN_STEPS or len(relabel_s) != \
+            2 * SELFTRAIN_STEPS:
+        fail(f"selfTrain train(): {agent.iter_count} optimizer steps and "
+             f"{len(relabel_s)} relabels, expected {SELFTRAIN_STEPS} and "
+             f"{2 * SELFTRAIN_STEPS}")
+    if not all(replaced):
+        fail(f"selfTrain: relabels replaced {replaced} instructions")
+    losses = [float(x) for x in agent.logs["loss"]]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"selfTrain train(): losses {losses}")
+    moved = {name.split(".")[0] for name, p in agent.policy.named_parameters()
+             if name in before and not torch.equal(p.detach(), before[name])}
+    if moved != {"encoder", "decoder", "critic", "adain"}:
+        fail(f"selfTrain train(): listener parameters of {sorted(moved)} "
+             "moved, expected the encoder's BiLSTM, decoder, critic, adain")
+    for key, val in speaker.model.state_dict().items():
+        if not torch.equal(val, sp_before[key]):
+            fail(f"selfTrain train(): speaker parameter {key} moved")
+    iters = [b - a for a, b in zip([start] + step_at, step_at)]
+    steps = agent.env_steps_total()
+    share = sum(relabel_s[2:]) / sum(iters[1:])
+    print(f"  relabels replaced {replaced} of {cfg.batch_size} instructions "
+          f"each; losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"  selfTrain train(): {seconds:.2f} s for {SELFTRAIN_STEPS} "
+          f"optimizer steps (org + aug pass pairs, checkpoint included); "
+          f"iteration s {[round(x, 4) for x in iters]}, median after the "
+          f"first {statistics.median(iters[1:]):.4f} s; relabel s "
+          f"{[round(x, 4) for x in relabel_s]}, {100 * share:.1f}% of the "
+          f"iterations after the first; {steps / seconds:.2f} training "
+          f"agent-steps/s ({steps} agent-steps); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; card {card_name()}", flush=True)
+    return launches
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1007,9 +1275,9 @@ def profile_window(label: str, fn, steps_of):
 
 
 def phase_profile(cfg, cfg_train, world, seed: int):
-    """Where one eval batch's, one training iteration's and one stream
-    window's time goes."""
-    from dasa_tpu_torch.train.trainer import make_agent
+    """Where one eval batch's, one training iteration's, one stream
+    window's and one selfTrain iteration's time goes."""
+    from dasa_tpu_torch.train.trainer import World, make_agent, make_speaker
 
     agent = make_agent(cfg, world, rng_seed=seed)
     agent.env = world.envs["val_unseen"]
@@ -1033,13 +1301,33 @@ def phase_profile(cfg, cfg_train, world, seed: int):
     profile_window("stream window (40 slots x 35 steps + optim)",
                    lambda: agent.train(1, feedback="sample"),
                    agent.env_steps_total)
+    del agent
+    cfg_st = cfg_train.replace(aug="aug", self_train=True)
+    world_st = World(cfg_st)
+    agent = make_agent(cfg_st, world_st, rng_seed=seed)
+    speaker = make_speaker(cfg_st, world_st)
+
+    def selftrain_step():
+        # one optimizer step of train()'s aug alternation
+        agent.zero_grad()
+        agent.env = world_st.envs["train"]
+        agent.accumulate_gradient("sample", ml_weight=cfg_st.ml_weight_org)
+        agent.env = world_st.envs["aug"]
+        agent.accumulate_gradient("sample", ml_weight=cfg_st.ml_weight_aug,
+                                  speaker=speaker)
+        agent.optim_step()
+
+    selftrain_step()  # warm-up
+    profile_window("selfTrain iteration (org pair + relabelled aug pair + "
+                   "optim)", selftrain_step, agent.env_steps_total)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,main,compare,train,train-compare,"
-                            "stream,stream-eval")
+                            "stream,stream-eval,speaker,speaker-compare,"
+                            "selftrain")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1066,8 +1354,10 @@ def main() -> None:
         print("== phase 2: kernels against their plain versions", flush=True)
         rows = phase_kernels(args.seed)
     launches_eval, launches, launches_stream = {}, {}, {}
+    launches_speaker, launches_selftrain = {}, {}
     if phases & {"main", "compare", "train", "train-compare", "stream",
-                 "stream-eval", "profile"}:
+                 "stream-eval", "profile", "speaker", "speaker-compare",
+                 "selftrain"}:
         with tempfile.TemporaryDirectory() as root:
             cfg, world = headline_world(root, args.seed, use_pallas="always")
             cfg_train = cfg.replace(**TRAIN)
@@ -1100,12 +1390,27 @@ def main() -> None:
                 print("== phase 8 (stream-eval): valid() under the stream "
                       "regime, phase 3's weights", flush=True)
                 phase_stream_eval(cfg, world, state, episodic, args.seed)
+            if phases & {"speaker", "speaker-compare"}:
+                print("== phase 9 (speaker): train_speaker() and "
+                      "valid_speaker() at the speaker's widths, batch 64",
+                      flush=True)
+                launches_speaker, spk_cfg, spk_world, spk_state = \
+                    phase_speaker(args.seed, root)
+            if "speaker-compare" in phases:
+                print("== phase 10 (speaker-compare): the speaker under "
+                      "use_pallas always vs never", flush=True)
+                phase_speaker_compare(spk_cfg, spk_world, spk_state)
+            if "selftrain" in phases:
+                print("== phase 11 (selftrain): auglistener --selfTrain at "
+                      "headline width", flush=True)
+                launches_selftrain = phase_selftrain(cfg_train, args.seed,
+                                                     root)
             if "profile" in phases:
                 print("== profile: one eval batch, one training iteration, "
                       "one stream window", flush=True)
                 phase_profile(cfg, cfg_train, world, args.seed)
     if rows:
-        print("== phase 2 rows with the launches of phases 3, 5 and 7",
+        print("== phase 2 rows with the launches of phases 3, 5, 7, 9 and 11",
               flush=True)
     for r in rows:
         base = r["name"].split("[")[0]
@@ -1114,8 +1419,10 @@ def main() -> None:
         print(f"  {r['name']}: {r['ms']:.4f} ms one call, {r['device_ms']:.4f}"
               f" ms device, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"launches {launches.get(base, 0)} in train(), "
-              f"{launches_eval.get(base, 0)} in valid() and "
-              f"{launches_stream.get(base, 0)} in train() under stream"
+              f"{launches_eval.get(base, 0)} in valid(), "
+              f"{launches_stream.get(base, 0)} in train() under stream, "
+              f"{launches_speaker.get(base, 0)} in the speaker phase and "
+              f"{launches_selftrain.get(base, 0)} in selfTrain train()"
               f"{per_token}",
               flush=True)
     out = []
@@ -1129,6 +1436,8 @@ def main() -> None:
                     "launches": launches.get(base, 0),
                     "launches_eval": launches_eval.get(base, 0),
                     "launches_stream": launches_stream.get(base, 0),
+                    "launches_speaker": launches_speaker.get(base, 0),
+                    "launches_selftrain": launches_selftrain.get(base, 0),
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -22,10 +22,12 @@ JAX agent's ``fold_in(_base_rng, _rollout_counter)``; the two frameworks'
 streams differ, so parity with the JAX package holds with dropout off and
 the noise passed in.  Under ``rollout_mode="stream"`` training and
 evaluation run the continuous-batching windows of ``agents/stream.py``
-instead.  The host act/replay rollout, the combined 2B-wide program
-(``fuse_passes="auto"``, which the stream regime overrides, as in the JAX
-agent), ``remat`` other than ``never``, selfTrain and data parallel raise
-``NotImplementedError`` (ROADMAP.md).
+instead.  selfTrain back-translation (a ``speaker`` handed to
+``accumulate_gradient``) relabels each episodic batch before its pass.
+The host act/replay rollout (and with it selfTrain under stream), the
+combined 2B-wide program (``fuse_passes="auto"``, which the stream regime
+overrides, as in the JAX agent), ``remat`` other than ``never`` and data
+parallel raise ``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -142,6 +144,14 @@ class Seq2SeqAgent(StreamMixin):
                  feature_db: FeatureDB,
                  depth_db: Optional[FeatureDB] = None, rng_seed: int = 0,
                  device=None):
+        if cfg.pretrain_model_name:
+            # the JAX agent loads its encoder from this checkpoint
+            # (seq2seq.py:174-190); training from random weights instead
+            # would pass unnoticed
+            raise NotImplementedError(
+                "pretrain_model_name: loading the encoder from a "
+                "pretraining checkpoint comes with utils/pretrain_load.py "
+                "(ROADMAP.md section 1, item 6)")
         self.cfg = cfg
         self.env = env
         self.device = resolve_device(device)
@@ -237,8 +247,13 @@ class Seq2SeqAgent(StreamMixin):
 
     def _batch_inputs(self):
         """Reset the env to its next minibatch; device inputs of it."""
+        self.env.reset()
+        return self._episode_tensors()
+
+    def _episode_tensors(self):
+        """Device inputs of the env's current minibatch: the env tables,
+        the episode inputs and the instruction tensors."""
         env = self.env
-        env.reset()
         dev = self._device_env_tables()
         ep = {k: self._put(v) for k, v in episode_inputs(env, dev).items()}
         instr = self._put(env._static["instr"]).long()
@@ -391,8 +406,6 @@ class Seq2SeqAgent(StreamMixin):
             missing.append("the combined 2B-wide program (fuse_passes=auto)")
         if cfg.remat != "never":
             missing.append(f"remat={cfg.remat!r}")
-        if cfg.self_train:
-            missing.append("selfTrain back-translation")
         if missing:
             raise NotImplementedError(
                 "Seq2SeqAgent training: " + "; ".join(missing)
@@ -436,19 +449,24 @@ class Seq2SeqAgent(StreamMixin):
         return min(t_max, max(len(item["path"]) for item in self.env.data)
                    + 1)
 
-    def _device_rollout_args(self, env_noise: Optional[torch.Tensor]):
+    def _device_rollout_args(self, env_noise: Optional[torch.Tensor],
+                             speaker=None):
         """Reset the env to its next minibatch and gather a pass's inputs:
         the device episode inputs, the rollout's generator and, under
-        ``consistent_drop``, its env-drop noise (seq2seq.py:1400).
-        ``env_noise`` replaces the drawn noise (parity tests pass the JAX
-        agent's)."""
-        dev, ep, instr, valid, seq_len = self._batch_inputs()
+        ``consistent_drop`` or with a ``speaker``, its env-drop noise
+        (seq2seq.py:1400-1440).  ``env_noise`` replaces the drawn noise
+        (parity tests pass the JAX agent's).  A ``speaker`` relabels the
+        minibatch (selfTrain back-translation, decoding with the same
+        noise) after the reset and before the inputs are gathered."""
+        self.env.reset()
         gen = self._rollout_generator()
         noise = None
-        if self.cfg.consistent_drop:
+        if self.cfg.consistent_drop or speaker is not None:
             noise = (self._noise_fn(gen) if env_noise is None
                      else env_noise.to(self.device, self.dtype))
-        return dev, ep, instr, valid, seq_len, gen, noise
+        if speaker is not None:
+            speaker.relabel_batch(self.env, noise)
+        return (*self._episode_tensors(), gen, noise)
 
     def _teacher_trajectory(self, dev: DeviceEnvTables, ep, n_steps: int):
         """Phase A of the teacher pass (seq2seq.py:718-743): the
@@ -657,17 +675,20 @@ class Seq2SeqAgent(StreamMixin):
                        train_rl: bool = True,
                        feedback: Optional[str] = None,
                        env_noise: Optional[torch.Tensor] = None,
-                       record: Optional[dict] = None) -> None:
+                       record: Optional[dict] = None,
+                       speaker=None) -> None:
         """One training episode batch on the device (seq2seq.py:1537):
         the teacher pass or the sampled / argmax pass, whose gradients
         autograd adds to the parameters' ``.grad``.  Fetches nothing from
-        the device.  ``env_noise`` replaces the drawn env-drop noise;
-        ``record`` receives a sampled / argmax episode (both for tests)."""
+        the device.  ``speaker`` relabels the batch first (selfTrain
+        back-translation, agent_dg.py:656-675).  ``env_noise`` replaces
+        the drawn env-drop noise; ``record`` receives a sampled / argmax
+        episode (both for tests)."""
         self._require_device_training()
         feedback = feedback or self.cfg.feedback
         train_rl = train_rl and feedback == "sample"
         dev, ep, instr, valid, seq_len, gen, noise = \
-            self._device_rollout_args(env_noise)
+            self._device_rollout_args(env_noise, speaker)
         weights = (train_ml if train_ml is not None else 0.0,
                    1.0 if train_rl else 0.0,
                    0.01 if (train_rl and feedback == "sample") else 0.0)
@@ -702,26 +723,36 @@ class Seq2SeqAgent(StreamMixin):
         self.losses = []
 
     def accumulate_gradient(self, feedback: str = "teacher",
-                            ml_weight: Optional[float] = None) -> None:
+                            ml_weight: Optional[float] = None,
+                            speaker=None) -> None:
         """The device branch of the two-pass accumulation
         (seq2seq.py:1912, agent_dg.py:1347-1384): a teacher pass at
         ``teacher_weight``, or a teacher-ML pass at ``ml_weight``
         (default ``cfg.ml_weight``; the aug alternation passes the org /
         aug weights) followed by a sampled A2C pass; under stream, one
-        streamed window instead of the pair (seq2seq.py:1936-1944)."""
+        streamed window instead of the pair (seq2seq.py:1936-1944).  A
+        ``speaker`` relabels each pass's batch first (selfTrain); its
+        decode records no graph, so the speaker's parameters get no
+        gradient."""
         cfg = self.cfg
         if ml_weight is None:
             ml_weight = cfg.ml_weight
+        if speaker is not None and self.use_stream_rollout():
+            # the JAX agent falls back to the host rollout here, since the
+            # stream's slots refill mid-window (seq2seq.py:1924-1932)
+            raise NotImplementedError(
+                "selfTrain under rollout_mode=stream needs the host "
+                "act/replay rollout (ROADMAP.md section 1, item 3)")
         if feedback == "teacher":
             self.device_rollout(train_ml=cfg.teacher_weight, train_rl=False,
-                                feedback="teacher")
+                                feedback="teacher", speaker=speaker)
         elif feedback == "sample" and self.use_stream_rollout():
             self.device_rollout_stream(ml_weight, feedback="sample")
         elif feedback == "sample":
             self.device_rollout(train_ml=ml_weight, train_rl=False,
-                                feedback="teacher")
+                                feedback="teacher", speaker=speaker)
             self.device_rollout(train_ml=None, train_rl=True,
-                                feedback="sample")
+                                feedback="sample", speaker=speaker)
         else:
             raise ValueError(feedback)
 

@@ -2,7 +2,11 @@
 
     python -m dasa_tpu_torch.cli --train listener ...       # IL + A2C
     python -m dasa_tpu_torch.cli --train auglistener --aug <json> ...
+    python -m dasa_tpu_torch.cli --train auglistener --aug <json>
+        --selfTrain --speaker <ckpt> ...   # speaker back-translation
     python -m dasa_tpu_torch.cli --train validlistener [--load <ckpt>]
+    python -m dasa_tpu_torch.cli --train speaker ...
+    python -m dasa_tpu_torch.cli --train validspeaker [--load <ckpt>]
 
 The flags are ``train.py``'s (the reference's spellings and snake_case),
 parsed by the port's copy of the config.  ``--device`` picks the device
@@ -31,6 +35,10 @@ def main(argv=None) -> None:
         trainer.train(cfg, device=known.device)
     elif cfg.train == "validlistener" and not cfg.beam:
         trainer.valid(cfg, device=known.device)
+    elif cfg.train == "speaker":
+        trainer.train_speaker(cfg, device=known.device)
+    elif cfg.train == "validspeaker":
+        trainer.valid_speaker(cfg, device=known.device)
     else:
         raise NotImplementedError(
             f"--train {cfg.train}{' --beam' if cfg.beam else ''} is not "

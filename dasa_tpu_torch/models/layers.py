@@ -108,10 +108,23 @@ def _uniform_(p: torch.Tensor, scale: float) -> None:
         p.uniform_(-scale, scale)
 
 
+def _fold_bias_(bias_ih: nn.Parameter, bias_hh: nn.Parameter) -> None:
+    """The JAX cell has ONE bias b, which ``bias_ih`` plays alone:
+    ``bias_hh`` (the reference's second bias, kept for its names) is
+    folded into it at init, then held at zero and not trained, so that an
+    optimizer step, the global-norm clip and weight decay move the bias as
+    the JAX chain moves b (two trained biases would each take the full
+    step).  The cell's bias, their sum, keeps the reference's init."""
+    with torch.no_grad():
+        bias_ih += bias_hh
+        bias_hh.zero_()
+    bias_hh.requires_grad_(False)
+
+
 class LstmCell(nn.Module):
     """torch ``nn.LSTMCell`` naming and gate order (i, f, g, o), uniform
     +-1/sqrt(H) init.  ``bias_ih + bias_hh`` plays the JAX cell's single
-    bias."""
+    bias; ``bias_hh`` is zero and frozen (:func:`_fold_bias_`)."""
 
     def __init__(self, features: int, in_features: int,
                  compute_dtype=torch.float32):
@@ -125,6 +138,7 @@ class LstmCell(nn.Module):
         k = 1.0 / math.sqrt(features)
         for p in self.parameters():
             _uniform_(p, k)
+        _fold_bias_(self.bias_ih, self.bias_hh)
 
     def forward(self, carry: Tuple[torch.Tensor, torch.Tensor], x):
         dt = self.compute_dtype
@@ -143,7 +157,8 @@ class BiLSTM(nn.Module):
     (``weight_ih_l0``, ``..._reverse``).  Outputs concat(fwd, bwd)
     features and final states concat(bwd, fwd) (reference
     model.py:66-68).  Masked tokens pass the carry on, as PackedSequence
-    does.
+    does.  Each direction's ``bias_hh`` is zero and frozen
+    (:func:`_fold_bias_`).
 
     ``kernel=True`` runs both directions through ``ops.lstm.BiLstmScanFn``
     (f32 carry; on the card one launch of the forward kernel for both
@@ -167,6 +182,8 @@ class BiLSTM(nn.Module):
                 p = nn.Parameter(torch.empty(*shape))
                 _uniform_(p, k)
                 self.register_parameter(f"{name}_l0{sfx}", p)
+            _fold_bias_(getattr(self, f"bias_ih_l0{sfx}"),
+                        getattr(self, f"bias_hh_l0{sfx}"))
 
     def _dir(self, sfx: str):
         dt = self.compute_dtype

@@ -181,6 +181,15 @@ def require_cuda(name: str, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, copied when it is not: a view
+    into a stacked tensor can start mid-vector (the second direction's
+    (T, B) bf16 mask of a BiLSTM starts 2 T B bytes in, at T 35, B 20 not
+    a multiple of 16)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     """The raw kernel entry points return tensors without a ``grad_fn``:
     with grad mode on they refuse inputs that require grad, rather than

@@ -298,8 +298,8 @@ def lstm_scan(xw, mask, h0, c0, wh, with_acts: bool = False):
                   mask=(mask.shape, (t_len, b)), h0=(h0.shape, (b, hd)),
                   c0=(c0.shape, (b, hd)), wh=(wh.shape, (hd, 4 * hd)))
     h_seq, c_seq, acts, launches = _fwd_launch(
-        *(x.contiguous()[None] for x in (xw, mask, h0, c0)),
-        [wh.t().contiguous()], with_acts)
+        *(_build.aligned(x)[None] for x in (xw, mask, h0, c0)),
+        [_build.aligned(wh.t())], with_acts)
     lstm_scan.launches += launches
     if with_acts:
         return h_seq[0], c_seq[0], acts[0]
@@ -326,8 +326,8 @@ def lstm_scan_bwd(acts, c_prev, g_h, g_c, mask, wh):
                   g_c=(g_c.shape, seq), mask=(mask.shape, (t_len, b)),
                   wh=(wh.shape, (hd, 4 * hd)))
     acts, c_prev, g_h, g_c, mask = (
-        x.contiguous() for x in (acts, c_prev, g_h, g_c, mask))
-    wt = wh.t().contiguous()
+        _build.aligned(x) for x in (acts, c_prev, g_h, g_c, mask))
+    wt = _build.aligned(wh.t())
     _build.require_cuda("lstm_scan_bwd", acts=acts, c_prev=c_prev, g_h=g_h,
                         g_c=g_c, mask=mask, wh=wt)
     plan = bwd_plan(t_len, b, hd, _build.sm_count(acts))
@@ -418,8 +418,8 @@ def bilstm_scan(xw, mask, h0, c0, wh, with_acts: bool = False):
                   wh=((len(wh), *wh[0].shape, *wh[-1].shape),
                       (2, hd, 4 * hd, hd, 4 * hd)))
     *out, launches = _fwd_launch(
-        *(x.contiguous() for x in (xw, mask, h0, c0)),
-        [wh[d].t().contiguous() for d in range(2)], with_acts)
+        *(_build.aligned(x) for x in (xw, mask, h0, c0)),
+        [_build.aligned(wh[d].t()) for d in range(2)], with_acts)
     bilstm_scan.launches += launches
     return tuple(out) if with_acts else tuple(out[:2])
 

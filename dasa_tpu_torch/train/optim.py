@@ -9,6 +9,12 @@ decoder's gradients, each separately.  ``torch.optim.RMSprop(alpha=0.99,
 eps=1e-8)`` is the update the JAX package's ``scale_by_torch_rms`` copies;
 ``adam``, ``adamw`` and ``sgd`` are torch's, which the optax chains of
 ``_base_opt`` equal.
+
+A parameter left without a gradient in a step is stepped with a zero
+gradient, as the JAX package's ``optax.multi_transform`` feeds every leaf
+of a stepped component (``dasa_tpu/train/optim.py:84``): RMSprop's and
+Adam's moments decay, Adam's step count stays the component's, and
+``weight_decay`` moves the parameter.
 """
 
 from __future__ import annotations
@@ -39,7 +45,9 @@ def lr_lambda(cfg: Config) -> Callable[[int], float]:
     return fn
 
 
-def _make(cfg: Config, params: List[nn.Parameter]) -> torch.optim.Optimizer:
+def make_optimizer(cfg: Config, params: List[nn.Parameter]
+                   ) -> torch.optim.Optimizer:
+    """The torch optimizer of ``cfg.optim`` over ``params``."""
     wd = cfg.weight_decay
     if cfg.optim == "rms":
         return torch.optim.RMSprop(params, lr=cfg.lr, alpha=0.99, eps=1e-8,
@@ -51,6 +59,15 @@ def _make(cfg: Config, params: List[nn.Parameter]) -> torch.optim.Optimizer:
     if cfg.optim == "sgd":
         return torch.optim.SGD(params, lr=cfg.lr, weight_decay=wd)
     raise ValueError(cfg.optim)
+
+
+def fill_missing_grads_(params: List[nn.Parameter]) -> None:
+    """Give every parameter of ``params`` without a gradient a zero one, so
+    that its optimizer steps it as the JAX chain steps a leaf whose
+    gradient is zero."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
 
 
 def clip_grad_global_norm_(params: List[nn.Parameter],
@@ -77,14 +94,16 @@ class ComponentOptimizer:
         self.params: Dict[str, List[nn.Parameter]] = {}
         for name, module in policy.named_children():
             key = name if name in COMPONENTS else "other"
-            self.params.setdefault(key, []).extend(module.parameters())
-        self.optimizers = {name: _make(cfg, params)
+            self.params.setdefault(key, []).extend(
+                p for p in module.parameters() if p.requires_grad)
+        self.optimizers = {name: make_optimizer(cfg, params)
                            for name, params in self.params.items()}
         self.iteration = 0  # updates applied: the schedule's step count
 
     def step(self) -> None:
         it = self.iteration
         for name, opt in self.optimizers.items():
+            fill_missing_grads_(self.params[name])
             if name in CLIPPED:
                 clip_grad_global_norm_(self.params[name], CLIP_NORM)
             if self.schedule is not None and name in SCHEDULED:

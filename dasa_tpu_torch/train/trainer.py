@@ -1,10 +1,10 @@
 """World setup and the ``listener`` / ``auglistener`` / ``validlistener``
-entry points.
+/ ``speaker`` / ``validspeaker`` entry points.
 
-Counterpart of ``World``, ``make_agent``, ``run_validation``, ``train``
-and ``valid`` in ``dasa_tpu/train/trainer.py`` (reference
-r2r_src/train.py:157-421).  Beam validation, the speaker modes and
-selfTrain, NDH worlds and the data-parallel mesh come with later slices
+Counterpart of ``World``, ``make_agent``, ``run_validation``, ``train``,
+``train_speaker``, ``valid_speaker`` and ``valid`` in
+``dasa_tpu/train/trainer.py`` (reference r2r_src/train.py:110-421).  Beam
+validation, NDH worlds and the data-parallel mesh come with later slices
 (ROADMAP.md).
 """
 
@@ -18,6 +18,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from dasa_tpu_torch.agents.seq2seq import Seq2SeqAgent
+from dasa_tpu_torch.agents.speaker import SpeakerAgent
 from dasa_tpu_torch.config import Config
 from dasa_tpu_torch.data.datasets import expand_instructions, load_datasets
 from dasa_tpu_torch.data.features import load_feature_db
@@ -131,25 +132,34 @@ def run_validation(agent: Seq2SeqAgent, world: World, writer, it: int,
     return loss_str
 
 
+def make_speaker(cfg: Config, world: World, device=None) -> SpeakerAgent:
+    return SpeakerAgent(cfg, world.envs["train"], world.feature_db,
+                        vocab_size=len(world.tok), tok=world.tok,
+                        device=device)
+
+
 def train(cfg: Config, world: Optional[World] = None, device=None,
-          agent: Optional[Seq2SeqAgent] = None) -> Seq2SeqAgent:
+          agent: Optional[Seq2SeqAgent] = None,
+          speaker: Optional[SpeakerAgent] = None) -> Seq2SeqAgent:
     """listener / auglistener training (train.py:157-393,
     ``dasa_tpu/train/trainer.py:175``): ``cfg.iters`` optimizer
     iterations in intervals of ``log_every``, validation every
     ``val_every``, checkpoints every ``save_every`` and at the end.  With
     an aug env each iteration accumulates the org env's pass pair at
     ``ml_weight_org`` and the aug env's at ``ml_weight_aug``; under
+    ``self_train`` a speaker (``speaker``, or one built here and loaded
+    from ``cfg.speaker``) relabels the aug env's batches first.  Under
     ``rollout_mode="stream"`` an iteration is one streamed window per env,
     each env keeping its own stream.  ``agent`` reuses an agent built by
     :func:`make_agent`."""
-    if cfg.self_train:
-        raise NotImplementedError(
-            "selfTrain (speaker back-translation) comes with the speaker "
-            "slice (ROADMAP.md)")
     world = world or World(cfg)
     agent = agent or make_agent(cfg, world, device=device)
     train_env = world.envs["train"]
     aug_env = world.envs.get("aug")
+    if cfg.self_train and speaker is None:
+        speaker = make_speaker(cfg, world, device=agent.device)
+        if cfg.speaker is not None:
+            speaker.load(cfg.speaker)
     snap_dir = os.path.join(cfg.snap_dir, cfg.name, "state_dict")
     os.makedirs(snap_dir, exist_ok=True)
     writer = MetricsWriter(os.path.join(cfg.log_dir, cfg.name))
@@ -182,7 +192,8 @@ def train(cfg: Config, world: Optional[World] = None, device=None,
                                               ml_weight=cfg.ml_weight_org)
                     agent.env = aug_env
                     agent.accumulate_gradient(cfg.feedback,
-                                              ml_weight=cfg.ml_weight_aug)
+                                              ml_weight=cfg.ml_weight_aug,
+                                              speaker=speaker)
                     agent.optim_step()
             timer.toc("train")
             timer.step()
@@ -223,6 +234,86 @@ def train(cfg: Config, world: Optional[World] = None, device=None,
         killer.restore()
         writer.close()
     return agent
+
+
+def train_speaker(cfg: Config, world: Optional[World] = None, device=None,
+                  speaker: Optional[SpeakerAgent] = None) -> SpeakerAgent:
+    """Speaker training (train.py:110-155, ``dasa_tpu/train/trainer.py:
+    347``): ``cfg.iters`` teacher-forcing steps in intervals of
+    ``log_every``; every ``val_every`` both val splits are captioned and
+    scored, and the best BLEU and the best loss of each are checkpointed
+    (``best_{split}_bleu``, ``best_{split}_loss``), with a last checkpoint
+    at the end.  ``speaker`` reuses a speaker built by
+    :func:`make_speaker`."""
+    world = world or World(cfg)
+    speaker = speaker or make_speaker(cfg, world, device=device)
+    snap_dir = os.path.join(cfg.snap_dir, cfg.name, "state_dict")
+    os.makedirs(snap_dir, exist_ok=True)
+    writer = MetricsWriter(os.path.join(cfg.log_dir, cfg.name))
+    best_bleu = defaultdict(lambda: 0.0)
+    best_loss = defaultdict(lambda: 1e9)
+    log_every = 40 if cfg.fast_train else cfg.log_every
+    try:
+        for idx in range(0, cfg.iters, log_every):
+            it = idx + min(log_every, cfg.iters - idx)
+            speaker.env = world.envs["train"]
+            losses = speaker.train(it - idx)
+            writer.add_scalar("speaker/train_loss", float(np.mean(losses)),
+                              it)
+            if it % cfg.val_every == 0:
+                for env_name, out in _speaker_scores(speaker, world):
+                    bleu, loss = out["bleu"], out["loss"]
+                    writer.add_scalar(f"speaker/{env_name}_bleu", bleu, it)
+                    writer.add_scalar(f"speaker/{env_name}_loss", loss, it)
+                    if bleu > best_bleu[env_name]:
+                        best_bleu[env_name] = bleu
+                        speaker.save(it, os.path.join(
+                            snap_dir, f"best_{env_name}_bleu"))
+                    if loss < best_loss[env_name]:
+                        best_loss[env_name] = loss
+                        speaker.save(it, os.path.join(
+                            snap_dir, f"best_{env_name}_loss"))
+                    print(f"SPEAKER iter {it} {env_name}: bleu {bleu:.4f} "
+                          f"loss {loss:.4f} word_accu "
+                          f"{out['word_accu']:.4f}", flush=True)
+                writer.flush()
+        speaker.save(cfg.iters, os.path.join(snap_dir,
+                                             f"LAST_iter{cfg.iters}"))
+    finally:
+        writer.close()
+    return speaker
+
+
+def _speaker_scores(speaker: SpeakerAgent, world: World):
+    """(split, {bleu, loss, word_accu, sent_accu, path2inst}) of each val
+    split the world has: every path captioned, BLEU against the split's
+    references."""
+    for env_name in ("val_seen", "val_unseen"):
+        if env_name not in world.envs:
+            continue
+        speaker.env = world.envs[env_name]
+        path2inst, loss, word_accu, sent_accu = speaker.valid()
+        bleu, _precisions = world.evaluators[env_name].bleu_score(
+            path2inst, world.tok)
+        yield env_name, {"bleu": bleu, "loss": loss, "word_accu": word_accu,
+                         "sent_accu": sent_accu, "path2inst": path2inst}
+
+
+def valid_speaker(cfg: Config, world: Optional[World] = None, device=None,
+                  speaker: Optional[SpeakerAgent] = None) -> Dict[str, dict]:
+    """validspeaker (``dasa_tpu/train/trainer.py:387``): caption and score
+    both val splits after loading ``cfg.load`` when set.  Returns
+    {split: {bleu, loss, word_accu, sent_accu, path2inst}}."""
+    world = world or World(cfg)
+    speaker = speaker or make_speaker(cfg, world, device=device)
+    if cfg.load:
+        speaker.load(cfg.load)
+    out = {}
+    for env_name, scores in _speaker_scores(speaker, world):
+        out[env_name] = scores
+        print(f"{env_name}: bleu {scores['bleu']:.4f} loss "
+              f"{scores['loss']:.4f}", flush=True)
+    return out
 
 
 def valid(cfg: Config, world: Optional[World] = None, device=None,

@@ -4,7 +4,9 @@
 ``DasaPolicy`` (nested dicts of arrays, as ``jax.tree_util.tree_map(
 np.asarray, params)`` gives it; no JAX import is needed here) and returns
 the port's ``state_dict``, whose names are the reference r2r_src torch
-names.  Conventions, the inverse of ``dasa_tpu/utils/torch_import.py``:
+names; ``speaker_state_dict_from_jax`` does the same for the JAX
+``SpeakerModel``.  Conventions, the inverse of
+``dasa_tpu/utils/torch_import.py``:
 
 - a flax ``kernel`` (in, out) is a torch Linear ``weight`` (out, in),
   transposed; LayerNorm ``scale`` and Embed ``embedding`` are ``weight``;
@@ -12,9 +14,10 @@ names.  Conventions, the inverse of ``dasa_tpu/utils/torch_import.py``:
   (4H, in); its single bias ``b`` goes to ``bias_ih`` and zeros to
   ``bias_hh``; BiLSTM ``fwd_cell``/``bwd_cell`` are torch's ``_l0`` and
   ``_l0_reverse``;
-- ``lalayer_3`` is ``lalayer.3``; the decoder's ``embedding`` is the
-  reference Sequential's ``embedding.0``; the critic's ``Dense_0`` and
-  ``Dense_1`` are ``state2value.0`` and ``state2value.3``.
+- in the policy, ``lalayer_3`` is ``lalayer.3``; the decoder's
+  ``embedding`` is the reference Sequential's ``embedding.0``; the
+  critic's ``Dense_0`` and ``Dense_1`` are ``state2value.0`` and
+  ``state2value.3``.  The speaker's names carry over unchanged.
 
 Under ``use_pallas="always"`` the JAX kernel paths store their params
 under flat keys (``"a_fc/kernel"``, ``"linear_in/kernel"``,
@@ -51,8 +54,8 @@ def flatten_params(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
     return out
 
 
-def _module_path(path: Path) -> Path:
-    for head, new in _RENAME.items():
+def _module_path(path: Path, renames: Mapping[Path, Path]) -> Path:
+    for head, new in renames.items():
         if path[:len(head)] == head:
             path = new + path[len(head):]
     return tuple(f"{m.group(1)}.{m.group(2)}" if (m := _INDEXED.match(p))
@@ -62,6 +65,17 @@ def _module_path(path: Path) -> Path:
 def policy_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
     """The port's ``DasaPolicy`` state_dict (numpy f32 arrays) from the
     JAX ``DasaPolicy`` param tree."""
+    return _state_dict_from_jax(params, _RENAME)
+
+
+def speaker_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """The port's ``SpeakerModel`` state_dict (numpy f32 arrays) from the
+    JAX ``SpeakerModel`` param tree."""
+    return _state_dict_from_jax(params, {})
+
+
+def _state_dict_from_jax(params: Mapping, renames: Mapping[Path, Path]
+                         ) -> Dict[str, np.ndarray]:
     tree = params.get("params", params)
     state: Dict[str, np.ndarray] = {}
     for path, val in flatten_params(tree).items():
@@ -69,13 +83,13 @@ def policy_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
         val = np.asarray(val, np.float32)
         if mod[-1] in ("fwd_cell", "bwd_cell"):
             sfx = "_l0" if mod[-1] == "fwd_cell" else "_l0_reverse"
-            base = ".".join(_module_path(tuple(mod[:-1])))
+            base = ".".join(_module_path(tuple(mod[:-1]), renames))
         elif leaf in ("wi", "wh", "b"):
             sfx = ""
-            base = ".".join(_module_path(tuple(mod)))
+            base = ".".join(_module_path(tuple(mod), renames))
         else:
             sfx = None
-            base = ".".join(_module_path(tuple(mod)))
+            base = ".".join(_module_path(tuple(mod), renames))
         if sfx is not None:
             if leaf == "wi":
                 state[f"{base}.weight_ih{sfx}"] = val.T

@@ -207,6 +207,41 @@ def test_bilstm_scan_fn_grads_track_plain_autograd_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [20, 64])
+def test_speaker_width_lstm_kernels_match_plain_on_card(cuda, b):
+    """The speaker's BiLSTMs: H = 256 a direction over T = 35 (the teacher
+    paths' bound), B = 20 (selfTrain's relabel) and 64 (speaker training):
+    K1 for both directions (one launch at 20 rows, one a direction at 64),
+    K2, and BiLstmScanFn's gradients; the plans' shared memory against the
+    kernels' layouts."""
+    t, h = 35, 256
+    args = _fwd_inputs(9, t, b, h, 2)
+    ref = bilstm_scan_ref(*args)
+    _check_fwd(bilstm_scan(*args, with_acts=True), ref)
+    _check_fwd(bilstm_scan(*args), ref[:2])
+    bwd = _bwd_args(b, h, t)
+    for got, want in zip(lstm_scan_bwd(*bwd), lstm_scan_bwd_ref(*bwd)):
+        _rel_close(got, want, 2e-2)
+    xw, mask, h0, c0, wh = args
+    g = torch.Generator().manual_seed(3)
+    cots = tuple((torch.randn(2, t, b, h, generator=g) * 0.1).cuda()
+                 .bfloat16() for _ in range(2))
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in (xw, h0, c0, wh)]
+        out = fn(leaves[0], mask, *leaves[1:])
+        return torch.autograd.grad(out[:2], leaves, cots)
+
+    for got, want in zip(grads(bilstm_scan_fn), grads(bilstm_scan_ref)):
+        _rel_close(got, want, 5e-2)
+    lib = _build.library()
+    fp = fwd_plan(t, b, h, _build.sm_count(xw), 2)
+    assert lib.dasa_lstm_fwd_smem(t, b, h, fp.units) == fp.smem
+    bp = bwd_plan(t, b, h, _build.sm_count(xw))
+    assert lib.dasa_lstm_bwd_smem(t, b, h, bp.kc, bp.stages) == bp.smem
+
+
+@pytest.mark.cuda
 def test_launch_plans_match_the_kernels_layouts_on_card(cuda):
     lib = _build.library()
     for t, b, h in ((16, 3, 64), (80, 20, 1024), (80, 32, 1024)):

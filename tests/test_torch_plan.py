@@ -210,6 +210,40 @@ def test_lstm_fwd_plans_fit_the_stream_width(b):
             launches=1)
 
 
+@pytest.mark.parametrize("b,dirs,ctas,launches", [
+    (20, 2, 64, 1), (20, 1, 32, 1), (64, 2, 32, 2), (64, 1, 32, 1)])
+def test_lstm_fwd_plans_fit_the_speaker_width(b, dirs, ctas, launches):
+    """The speaker's BiLSTMs (H = 256 a direction, T <= 35): both
+    directions in one launch of 64 CTAs at selfTrain's 20 rows, one
+    launch of 32 CTAs a direction at speaker training's 64."""
+    plan = fwd_plan(35, b, 256, H100_SMS, dirs)
+    assert (plan.units, plan.ctas, plan.launches) == (8, ctas, launches)
+    assert plan.smem == _fwd_smem(35, b, 256, 8) <= _build.MAX_SMEM
+
+
+@pytest.mark.parametrize("b", [20, 64])
+def test_lstm_bwd_plans_fit_the_speaker_width(b):
+    """K2 at H = 256: 32 CTAs, 4H = 1024 columns in two chunks of 512,
+    both in the ring."""
+    plan = bwd_plan(35, b, 256, H100_SMS)
+    assert (plan.ctas, plan.kc, plan.nchunks, plan.stages) == (32, 512, 2, 2)
+    assert plan.smem == _bwd_smem(35, b, 256, 512, 2) <= _build.MAX_SMEM
+
+
+def test_misaligned_views_are_copied_before_a_launch():
+    """The second direction's mask of the speaker's relabel batch (T 35,
+    B 20, bf16) starts 1400 bytes into the stacked mask: the wrappers copy
+    it to a 16-byte aligned buffer; an aligned view passes through."""
+    import torch
+
+    mask = torch.ones(2, 35, 20, dtype=torch.bfloat16)
+    assert mask[1].data_ptr() % 16 != 0
+    copied = _build.aligned(mask[1])
+    assert copied.data_ptr() % 16 == 0 and torch.equal(copied, mask[1])
+    wide = torch.ones(2, 35, 64, dtype=torch.bfloat16)
+    assert _build.aligned(wide[1]).data_ptr() == wide[1].data_ptr()
+
+
 def test_lstm_fwd_sums_go_inside_the_h_row_only_when_they_must():
     """At 64 rows the k groups' partial sums (36 KiB) do not fit beside
     the 128 KiB h row and share it; at 40 rows they sit beside it."""

@@ -197,9 +197,8 @@ def test_stream_windows_match_jax(world, use_pallas):
             got = port_grads(agent)
             assert got.keys() == ref.keys()
             for name, grad in got.items():
-                np.testing.assert_allclose(
-                    grad, ref[name.replace("bias_hh", "bias_ih")],
-                    err_msg=name, **GRAD_TOL)
+                np.testing.assert_allclose(grad, ref[name], err_msg=name,
+                                           **GRAD_TOL)
     # the small pool made every flow event happen: refills, admit clamps
     # (re-queued tails) and starved slots
     recs = st.records

@@ -7,6 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,stream,stream-eval
     python3 chip_smoke.py --phases build,kernels,speaker,speaker-compare,selftrain
+    python3 chip_smoke.py --phases build,kernels,host,search
 
 Phases:
   1. build — print the card's name and power limit, build the CUDA
@@ -31,6 +32,10 @@ Phases:
      (H = 256 a direction, T = 35, every token valid) for selfTrain's
      relabel batch (B = 20) and speaker training's (``[spk,B64]``), with
      BiLstmScanFn's gradients, against a cuDNN ``nn.LSTM(2176, 256)``.
+     Rows named ``[rsc,T..]`` hold K1 (both directions, with and without
+     the gate activations) at the search's speaker rescoring: one path
+     (B = 1), H = 256, T in {1, 2, 8, 35} moves, every token valid, with
+     the ``[spk]`` limits.
   3. main — the launch counters set to 0, ``valid()`` (argmax evaluation
      of val_seen and val_unseen) at the full headline DASA width over a
      synthetic world, the counters read back; SR/SPL/NE per split,
@@ -83,14 +88,37 @@ Phases:
      parameters moved and the speaker's did not; prints seconds per
      iteration, training agent-steps/s, the relabels' share of an
      iteration and the peak memory.
+  12. host — the host act/replay rollout at headline width under
+     ``use_pallas="always"`` (the AdaIN gate and the shift attention
+     through their kernels, the top BiLSTM on its plain path): (a)
+     ``valid()`` with ``submit`` over both val splits: every instr_id
+     once, ``submit_{split}.json`` equal to the results, no move to a
+     candidate the visited mask hid; (b) ``train()`` under
+     ``device_rollout="never"``, 3 iterations: finite losses, the listener
+     moved, s an iteration and the peak memory; a dropout-free teacher-ML
+     pass on one batch against the device teacher pass (phase 6's
+     limits); (c) phase 11's command under ``rollout_mode="stream"``, 2
+     optimizer steps, the aug passes through the host fallback.
+  13. search — ``beam_valid()`` at headline width with an untrained
+     speaker at its Config widths (random weights from the seed):
+     Dijkstra over both val splits (1 candidate), 3 candidates with
+     ``param_search`` on val_seen, state-factored search on val_unseen.
+     Fails unless every instr_id is searched once, every picked
+     trajectory is a connected walk, every listener and speaker score is
+     finite, K1, K3 and K4 launched and the rescoring launched K1 at one
+     row; prints seconds a split and expansions a batch.  Then the first
+     expansion's log-probabilities under always and never (phase 4's
+     limit).
   profile (only when named in --phases) — one eval batch, one training
-     iteration and one stream window at headline width under
+     iteration, one stream window, one selfTrain iteration, one search
+     batch and one host-rollout iteration at headline width under
      torch.profiler, each after a warm-up: device time by kernel, the
      device's busy share of the wall.
 Then one ``{"kernels": [...]}`` JSON line (``launches``: the count during
 ``train()``; ``launches_eval``: during ``valid()``; ``launches_stream``:
 during ``train()`` under stream; ``launches_speaker``: during phase 9;
-``launches_selftrain``: during phase 11; ``ratio``: ``ms`` /
+``launches_selftrain``: during phase 11; ``launches_host``: during phase
+12; ``launches_search``: during phase 13's searches; ``ratio``: ``ms`` /
 ``library_ms``; ``device_ms`` / ``library_device_ms``: the back-to-back
 device times), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -146,6 +174,18 @@ SPK_ITERS = 4
 # the README's headline command: auglistener + selfTrain on the aug split
 SELFTRAIN_STEPS = 3
 SPEAKER_KERNELS = ("bilstm_scan", "lstm_scan_bwd")
+# the host phase: train() under device_rollout="never", and selfTrain
+# under stream through the host fallback
+HOST_ITERS = 3
+HOST_SELFTRAIN_STEPS = 2
+# the listener's trained components (BERT is frozen), and the settings of
+# the dropout-free comparisons
+TRAINED = ("encoder.lstm.", "decoder.", "critic.", "adain.")
+NO_DROPOUT = dict(dropout=0.0, featdropout=0.0, d_dropout_ratio=0.0,
+                  d_hidden_dropout_prob=0.0, d_attn_dropout_prob=0.0)
+# the speaker's rescoring of one search path at a time: K1 at one row over
+# the path's moves (1 up to max_action 35)
+RSC_T = (1, 2, 8, 35)
 # the wrappers the main path launches (lstm_scan, K1's one-direction
 # entry, is timed in phase 2 but not on the path: the BiLSTM takes both
 # directions in one launch)
@@ -299,6 +339,12 @@ def phase_kernels(seed: int):
             rnd, gen, B, n_sm, tag, T=SPK_T, H=SPK_H, E=SPK_E, ragged=False)
         rows += k1 + k2
         check_bilstm_fn_grads(rnd, mask2, wh2, f"BiLstmScanFn {tag}")
+    # the speaker's rescoring of a search path: one row, T its moves
+    for T in RSC_T:
+        k1, _k2, _ = kernel_rows_lstm(rnd, gen, 1, n_sm, f"rsc,T{T}", T=T,
+                                      H=SPK_H, E=SPK_E, ragged=False,
+                                      bwd=False)
+        rows += k1
     for r in rows:
         fn, lib_fn = r.pop("fn"), r.pop("library_fn")
         # K1 and its cuDNN forward under no_grad; K2's yardstick is a
@@ -332,12 +378,13 @@ def _named(base, tag, *more):
 
 
 def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
-                     ragged=True):
+                     ragged=True, bwd=True):
     """K1 (one direction without a tag only; both directions, with and
-    without the gate activations) and K2 at batch B, T tokens, H units a
-    direction: the listener's top BiLSTM (T 80, H 1024, input 768, ragged
-    lengths) or, tagged ``spk``, the speaker's (T 35, H 256, input 2176,
-    every token valid)."""
+    without the gate activations) and, with ``bwd``, K2 at batch B, T
+    tokens, H units a direction: the listener's top BiLSTM (T 80, H 1024,
+    input 768, ragged lengths) or, tagged ``spk``, the speaker's (T 35, H
+    256, input 2176, every token valid); tagged ``rsc``, the speaker's
+    rescoring of one search path (B 1, forward only)."""
     import torch
 
     from dasa_tpu_torch.ops.lstm import (
@@ -444,6 +491,8 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
             print(f"  lstm_scan, both directions as two launches with acts: "
                   f"device time {pair:.4f} ms", flush=True)
 
+    if not bwd:
+        return rows, [], (mask, wh, mask2, wh2)
     # K2: the backward of direction 0; h_seq's cotangent at every token,
     # c_seq's only at the last (the final carry feeds the decoder)
     c_prev = torch.cat([c0[None], ck[:-1]])
@@ -787,10 +836,9 @@ def phase_train(cfg, world, seed: int, root: str):
                       save_every=10 ** 9, snap_dir=os.path.join(root, "snap"),
                       log_dir=os.path.join(root, "log"))
     agent = make_agent(cfg, world, rng_seed=seed)
-    trained = ("encoder.lstm.", "decoder.", "critic.", "adain.")
     before = {name: p.detach().clone()
               for name, p in agent.policy.named_parameters()
-              if name.startswith(trained)}
+              if name.startswith(TRAINED)}
     iter_s = []
     run_iters = agent.train
 
@@ -847,8 +895,7 @@ def phase_train_compare(cfg, world, seed: int):
 
     from dasa_tpu_torch.train.trainer import make_agent
 
-    cfg = cfg.replace(dropout=0.0, featdropout=0.0, d_dropout_ratio=0.0,
-                      d_hidden_dropout_prob=0.0, d_attn_dropout_prob=0.0)
+    cfg = cfg.replace(**NO_DROPOUT)
     env = world.envs["train"]
     state, results = None, []
     for mode in ("always", "never"):
@@ -907,10 +954,9 @@ def phase_stream(cfg, world, seed: int, root: str):
                       save_every=10 ** 9, snap_dir=os.path.join(root, "snap"),
                       log_dir=os.path.join(root, "log"))
     agent = make_agent(cfg, world, rng_seed=seed)
-    trained = ("encoder.lstm.", "decoder.", "critic.", "adain.")
     before = {name: p.detach().clone()
               for name, p in agent.policy.named_parameters()
-              if name.startswith(trained)}
+              if name.startswith(TRAINED)}
     window = agent.device_rollout_stream
     host_s, window_losses = [], []
 
@@ -1139,12 +1185,15 @@ def phase_speaker_compare(cfg, world, state):
           f"{len(words[0])} = {same / len(words[0]):.3f}", flush=True)
 
 
-def phase_selftrain(cfg, seed: int, root: str):
+def phase_selftrain(cfg, seed: int, root: str, steps: int = SELFTRAIN_STEPS,
+                    name: str = "selftrain"):
     """The README's headline command: auglistener with selfTrain
-    back-translation on the aug split, batch 20, episodic, under
-    use_pallas="always", SELFTRAIN_STEPS optimizer steps; the speaker is
-    built on the listener world's vocabulary (random weights from the
-    seed).  The launch counters zeroed before, read after."""
+    back-translation on the aug split, batch 20, in ``cfg``'s regime
+    (episodic; or stream, where the aug env's pass pair falls back to the
+    host act/replay rollout), under use_pallas="always", ``steps``
+    optimizer steps; the speaker is built on the listener world's
+    vocabulary (random weights from the seed).  The launch counters
+    zeroed before, read after."""
     import torch
 
     from dasa_tpu_torch import ops
@@ -1156,17 +1205,16 @@ def phase_selftrain(cfg, seed: int, root: str):
     )
 
     cfg = cfg.replace(aug="aug", self_train=True, accumulate_grad=True,
-                      iters=2 * SELFTRAIN_STEPS, log_every=2,
+                      iters=2 * steps, log_every=2,
                       val_every=10 ** 9, save_every=10 ** 9,
                       snap_dir=os.path.join(root, "snap"),
-                      log_dir=os.path.join(root, "log"), name="selftrain")
+                      log_dir=os.path.join(root, "log"), name=name)
     world = World(cfg)
     agent = make_agent(cfg, world, rng_seed=seed)
     speaker = make_speaker(cfg, world)
-    trained = ("encoder.lstm.", "decoder.", "critic.", "adain.")
     before = {name: p.detach().clone()
               for name, p in agent.policy.named_parameters()
-              if name.startswith(trained)}
+              if name.startswith(TRAINED)}
     sp_before = {k: v.clone() for k, v in speaker.model.state_dict().items()}
     relabel, step = speaker.relabel_batch, agent.optim_step
     relabel_s, replaced, step_at = [], [], []
@@ -1203,11 +1251,11 @@ def phase_selftrain(cfg, seed: int, root: str):
     for name in PATH_KERNELS:
         if launches[name] <= 0:
             fail(f"kernel {name} never launched during selfTrain train()")
-    if agent.iter_count != SELFTRAIN_STEPS or len(relabel_s) != \
-            2 * SELFTRAIN_STEPS:
+    if agent.iter_count != steps or len(relabel_s) != \
+            2 * steps:
         fail(f"selfTrain train(): {agent.iter_count} optimizer steps and "
-             f"{len(relabel_s)} relabels, expected {SELFTRAIN_STEPS} and "
-             f"{2 * SELFTRAIN_STEPS}")
+             f"{len(relabel_s)} relabels, expected {steps} and "
+             f"{2 * steps}")
     if not all(replaced):
         fail(f"selfTrain: relabels replaced {replaced} instructions")
     losses = [float(x) for x in agent.logs["loss"]]
@@ -1222,18 +1270,367 @@ def phase_selftrain(cfg, seed: int, root: str):
         if not torch.equal(val, sp_before[key]):
             fail(f"selfTrain train(): speaker parameter {key} moved")
     iters = [b - a for a, b in zip([start] + step_at, step_at)]
-    steps = agent.env_steps_total()
+    agent_steps = agent.env_steps_total()
     share = sum(relabel_s[2:]) / sum(iters[1:])
     print(f"  relabels replaced {replaced} of {cfg.batch_size} instructions "
           f"each; losses {[round(x, 4) for x in losses]}", flush=True)
-    print(f"  selfTrain train(): {seconds:.2f} s for {SELFTRAIN_STEPS} "
-          f"optimizer steps (org + aug pass pairs, checkpoint included); "
-          f"iteration s {[round(x, 4) for x in iters]}, median after the "
-          f"first {statistics.median(iters[1:]):.4f} s; relabel s "
+    print(f"  selfTrain train() ({cfg.rollout_mode}): {seconds:.2f} s for "
+          f"{steps} optimizer steps (org + aug pass pairs, checkpoint "
+          f"included); iteration s {[round(x, 4) for x in iters]}, median "
+          f"after the first {statistics.median(iters[1:]):.4f} s; relabel s "
           f"{[round(x, 4) for x in relabel_s]}, {100 * share:.1f}% of the "
-          f"iterations after the first; {steps / seconds:.2f} training "
-          f"agent-steps/s ({steps} agent-steps); peak memory "
+          f"iterations after the first; {agent_steps / seconds:.2f} training "
+          f"agent-steps/s ({agent_steps} agent-steps); peak memory "
           f"{peak / 2 ** 30:.2f} GiB; card {card_name()}", flush=True)
+    return launches
+
+
+def walk_connected(graph, walk) -> bool:
+    """Each move of the walk goes to a navigable neighbour (a repeated
+    viewpoint turns in place)."""
+    adj = graph.nav_adjacency()
+    return all(a == b or adj[graph.id2ix[a], graph.id2ix[b]]
+               for a, b in zip(walk, walk[1:]))
+
+
+def add_launches(total, more):
+    for key, val in more.items():
+        total[key] = total.get(key, 0) + val
+
+
+def phase_host(cfg, cfg_train, world, seed: int, root: str):
+    """The host act/replay rollout at headline width under
+    use_pallas="always": (a) ``valid()`` with ``submit`` over both val
+    splits, (b) ``train()`` under ``device_rollout="never"`` for
+    HOST_ITERS iterations and a dropout-free teacher-ML pass on one batch
+    against the device teacher pass, (c) ``auglistener --selfTrain``
+    under the stream regime, whose aug passes fall back to the host pair.
+    Returns the launches of (a) + (b) + (c)."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.train.trainer import make_agent, train, valid
+
+    total = {}
+    # (a) validlistener --submit: the visited-candidate mask
+    cfg_a = cfg.replace(submit=True, log_dir=os.path.join(root, "log"),
+                        name="host-submit")
+    agent = make_agent(cfg_a, world, rng_seed=seed)
+    trajs = capture_results(agent)
+    kept, to_sobs = [], agent._to_sobs
+
+    def keep(obs, ended, visited_mask, is_first):
+        sobs = to_sobs(obs, ended, visited_mask, is_first)
+        if visited_mask is not None:
+            kept.append((sobs, visited_mask))
+        return sobs
+
+    agent._to_sobs = keep
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    start = time.perf_counter()
+    out = valid(cfg_a, world, agent=agent)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.kernel_launches()
+    add_launches(total, launches)
+    del agent.test, agent._to_sobs
+    check_coverage(world, trajs)
+    hidden = moved_to_hidden = 0
+    for sobs, vm in kept:
+        a, n = sobs["action"], sobs["cand_n"]
+        moves = sobs["active"] & (a < n)
+        hidden += int(vm.sum())
+        moved_to_hidden += int((moves & vm[np.arange(len(a)),
+                                          np.minimum(a, vm.shape[1] - 1)])
+                               .sum())
+    if moved_to_hidden or not hidden:
+        fail(f"submit: {moved_to_hidden} moves to a candidate the visited "
+             f"mask hid ({hidden} hidden in all)")
+    for split, summary in out.items():
+        check_summary(split, summary)
+        path = os.path.join(cfg_a.log_dir, cfg_a.name,
+                            f"submit_{split}.json")
+        with open(path) as f:
+            written = json.load(f)
+        if written != json.loads(json.dumps(trajs[split])):
+            fail(f"{path} differs from valid()'s results")
+        print(f"  {split} (host, submit): SR {summary['success_rate']:.4f} "
+              f"SPL {summary['spl']:.4f}; {path} holds the {len(written)} "
+              "results", flush=True)
+    print(f"  host valid() with submit: {seconds:.2f} s, "
+          f"{agent.total_env_steps / seconds:.2f} agent-steps/s "
+          f"({agent.total_env_steps} agent-steps); {hidden} candidates "
+          f"hidden by the visited mask, none taken; launches {launches}",
+          flush=True)
+    check_host_routing("valid() with submit", launches)
+    del agent
+
+    # (b) train() under device_rollout="never"
+    cfg_b = cfg_train.replace(
+        device_rollout="never", iters=HOST_ITERS, log_every=1,
+        val_every=10 ** 9, save_every=10 ** 9,
+        snap_dir=os.path.join(root, "snap"),
+        log_dir=os.path.join(root, "log"), name="host-train")
+    agent = make_agent(cfg_b, world, rng_seed=seed)
+    before = {n: p.detach().clone() for n, p in
+              agent.policy.named_parameters() if n.startswith(TRAINED)}
+    iter_s, run_iters = [], agent.train
+
+    def timed(n_iters, feedback):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        run_iters(n_iters, feedback=feedback)
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - start)
+
+    agent.train = timed
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    train(cfg_b, world, agent=agent)
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    add_launches(total, launches)
+    peak = torch.cuda.max_memory_allocated()
+    del agent.train
+    # train() keeps the logs of its last interval: the last pass pair
+    losses = [float(x) for x in agent.logs["loss"]]
+    if agent.iter_count != HOST_ITERS or len(losses) != 2 or \
+            not all(math.isfinite(x) for x in losses):
+        fail(f"host train(): {agent.iter_count} steps, losses {losses}")
+    moved = {n.split(".")[0] for n, p in agent.policy.named_parameters()
+             if n in before and not torch.equal(p.detach(), before[n])}
+    if moved != {"encoder", "decoder", "critic", "adain"}:
+        fail(f"host train(): parameters of {sorted(moved)} moved")
+    steps = agent.env_steps_total()
+    print(f"  host train() (device_rollout=never): iteration s "
+          f"{[round(x, 4) for x in iter_s]}, median "
+          f"{statistics.median(iter_s):.4f} s; {steps / sum(iter_s):.2f} "
+          f"training agent-steps/s ({steps} agent-steps); losses "
+          f"{[round(x, 4) for x in losses]}; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches {launches}; card "
+          f"{card_name()}", flush=True)
+    check_host_routing("host train()", launches)
+    del agent
+
+    # the host teacher-ML pass against the device teacher pass: one
+    # batch, the same weights, dropout off
+    cfg_c = cfg_train.replace(**NO_DROPOUT)
+    agent = make_agent(cfg_c, world, rng_seed=seed)
+    agent.env = env = world.envs["train"]
+    noise = agent._noise_fn(
+        torch.Generator(device=agent.device).manual_seed(seed))
+    pass_losses, grads = [], []
+    for run in (agent.rollout, agent.device_rollout):
+        env.reset_epoch()
+        agent.zero_grad()
+        run(train_ml=0.2, train_rl=False, feedback="teacher",
+            env_noise=noise)
+        pass_losses.append(float(agent.losses[-1]))
+        grads.append(torch.cat([p.grad.float().flatten()
+                                for p in agent.policy.parameters()
+                                if p.grad is not None]))
+    lh, ld = pass_losses
+    cos = float(torch.dot(grads[0], grads[1])
+                / (grads[0].norm() * grads[1].norm()))
+    print(f"  teacher-ML pass host {lh:.6f} device {ld:.6f}; gradient "
+          f"cosine {cos:.6f}", flush=True)
+    # phase 6's limits
+    if not abs(lh - ld) <= 5e-2 * abs(ld):
+        fail(f"host teacher pass: loss {lh} vs the device's {ld} beyond 5%")
+    if not cos >= 0.99:
+        fail(f"host teacher pass: gradient cosine {cos} below 0.99")
+    del agent, grads
+
+    # (c) selfTrain under stream: the host fallback for the aug passes
+    add_launches(total, phase_selftrain(
+        cfg_train.replace(rollout_mode="stream"), seed, root,
+        steps=HOST_SELFTRAIN_STEPS, name="selftrain-stream"))
+    return total
+
+
+def check_host_routing(label, launches):
+    """The host act step and its replay take the top BiLSTM's plain path
+    (no K1, no K2) and, under always, the AdaIN gate and shift attention
+    kernels."""
+    for name in ("adain_channel_gate", "shift_attend"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} never launched during {label}")
+    for name in ("bilstm_scan", "lstm_scan_bwd"):
+        if launches[name] != 0:
+            fail(f"{label}: {name} launched {launches[name]} times; the "
+                 "host rollout takes the top BiLSTM's plain path")
+
+
+def phase_search(cfg, world, seed: int, root: str):
+    """beam_valid() at headline width with an untrained speaker at its
+    Config widths (random weights from the seed, the listener world's
+    vocabulary): Dijkstra over both val splits with 1 candidate, 3
+    candidates with param_search on val_seen, state-factored on
+    val_unseen; then the first expansion's log-probabilities under
+    use_pallas always and never.  The launch counters zeroed before the
+    three searches, read after."""
+    import copy
+
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.agents import search
+    from dasa_tpu_torch.train.trainer import (
+        beam_valid,
+        make_agent,
+        make_speaker,
+    )
+
+    cfg = cfg.replace(log_dir=os.path.join(root, "log"), name="search")
+    agent = make_agent(cfg, world, rng_seed=seed)
+    speaker = make_speaker(cfg, world)
+    stats = {"batches": 0, "expansions": 0, "paths": 0, "rescore_k1": 0}
+    runs = []
+    originals = {k: getattr(search, k) for k in (
+        "_begin", "_search_step", "_speaker_rescore", "beam_search_test",
+        "state_factored_search_test")}
+    score = speaker.score_instruction
+
+    def begin(a):
+        stats["batches"] += 1
+        return originals["_begin"](a)
+
+    def step(*args):
+        stats["expansions"] += 1
+        return originals["_search_step"](*args)
+
+    def rescore(results, sp):
+        k1 = ops.kernel_launches()["bilstm_scan"]
+        out = originals["_speaker_rescore"](results, sp)
+        stats["rescore_k1"] += ops.kernel_launches()["bilstm_scan"] - k1
+        return out
+
+    def score_one(rec, insts):
+        if rec["feat_row"].shape[0] != 1 or insts.shape[0] != 1:
+            fail("speaker rescoring: more than one path in a call")
+        stats["paths"] += 1
+        return score(rec, insts)
+
+    def timed(fn):
+        def run(a, *args, **kwargs):
+            before = dict(stats)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(a, *args, **kwargs)
+            torch.cuda.synchronize()
+            runs.append((a.env.name, fn.__name__, time.perf_counter() - start,
+                         {k: stats[k] - before[k] for k in stats}, out))
+            return out
+        return run
+
+    picked_ok = [0]
+
+    def checked(split):
+        env, scorer = world.envs[split], world.evaluators[split].score
+        scan_of = {item["instr_id"]: item["scan"] for item in env.data}
+
+        def run(results, **kwargs):
+            for r in results:
+                g = env.graphs[scan_of[r["instr_id"]]]
+                if not walk_connected(g, [t[0] for t in r["trajectory"]]):
+                    fail(f"search: the picked trajectory of "
+                         f"{r['instr_id']} is not a connected walk")
+            picked_ok[0] += len(results)
+            return scorer(results, **kwargs)
+        return run
+
+    search._begin, search._search_step = begin, step
+    search._speaker_rescore = rescore
+    search.beam_search_test = timed(originals["beam_search_test"])
+    search.state_factored_search_test = timed(
+        originals["state_factored_search_test"])
+    speaker.score_instruction = score_one
+    for split in ("val_seen", "val_unseen"):
+        world.evaluators[split].score = checked(split)
+
+    def only(split):
+        sub = copy.copy(world)
+        sub.envs = {k: v for k, v in world.envs.items()
+                    if k in ("train", split)}
+        return sub
+
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    try:
+        out = {"dijkstra": beam_valid(cfg.replace(candidates=1), world,
+                                      agent=agent, speaker=speaker),
+               "param_search": beam_valid(
+                   cfg.replace(candidates=3, param_search=True),
+                   only("val_seen"), agent=agent, speaker=speaker),
+               "state_factored": beam_valid(
+                   cfg.replace(search_type="state_factored"),
+                   only("val_unseen"), agent=agent, speaker=speaker)}
+        torch.cuda.synchronize()
+    finally:
+        launches = ops.kernel_launches()
+        for key, fn in originals.items():
+            setattr(search, key, fn)
+        del speaker.score_instruction
+        for split in ("val_seen", "val_unseen"):
+            del world.evaluators[split].score
+    print(f"  launches during the searches: {launches}", flush=True)
+    for name in EVAL_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} never launched during the searches")
+    if stats["rescore_k1"] <= 0:
+        fail("the speaker's rescoring never launched K1 at one row")
+    for split, fn_name, seconds, delta, results in runs:
+        want = {item["instr_id"] for item in world.envs[split].data}
+        if set(results) != want:
+            fail(f"{fn_name} {split}: {len(results)} results for "
+                 f"{len(want)} episodes")
+        for res in results.values():
+            for p in res["paths"]:
+                if not (np.isfinite(p["listener_scores"]).all()
+                        and np.isfinite(p["speaker_scores"]).all()):
+                    fail(f"{fn_name} {split}: non-finite scores")
+        n_paths = sum(len(r["paths"]) for r in results.values())
+        print(f"  {fn_name} on {split}: {seconds:.2f} s; "
+              f"{delta['batches']} batches, "
+              f"{delta['expansions'] / max(delta['batches'], 1):.1f} "
+              f"expansions a batch; {n_paths} paths kept, each rescored "
+              f"alone ({delta['rescore_k1']} K1 launches)", flush=True)
+    for kind, res in out.items():
+        for split, summary in res.items():
+            if kind == "param_search":
+                best = summary["best"]
+                print(f"  {kind} {split}: best avg_speaker={best[0]} "
+                      f"avg_listener={best[1]} alpha={best[2]:.2f} "
+                      f"SR={best[3]:.4f} over {len(summary['logs'])} "
+                      "settings", flush=True)
+            else:
+                check_summary(f"{kind} {split}", summary)
+                print(f"  {kind} {split}: SR {summary['success_rate']:.4f} "
+                      f"SPL {summary['spl']:.4f} NE "
+                      f"{summary['nav_error']:.4f}", flush=True)
+    print(f"  {picked_ok[0]} picked trajectories, each a connected walk; "
+          f"card {card_name()}", flush=True)
+
+    # the first expansion under always and never, same weights
+    state = agent.policy.state_dict()
+    lps = []
+    for mode in ("always", "never"):
+        a = agent if mode == "always" else make_agent(
+            cfg.replace(use_pallas="never"), world, rng_seed=seed + 1)
+        a.policy.load_state_dict(state)
+        a.env = world.envs["val_unseen"]
+        a.env.reset_epoch()
+        obs, text, _vps, _res, zero = search._begin(a)
+        _states, lp = search._search_step(
+            a, text, [zero] * obs.batch_size(),
+            [True] * obs.batch_size(), obs)
+        real = np.arange(lp.shape[1])[None, :] <= obs.cand_n[:, None]
+        lps.append(torch.from_numpy(lp[real]))
+    check_close("first expansion log-probs always vs never", lps[0],
+                lps[1], 0.0, 5e-2)
     return launches
 
 
@@ -1276,7 +1673,8 @@ def profile_window(label: str, fn, steps_of):
 
 def phase_profile(cfg, cfg_train, world, seed: int):
     """Where one eval batch's, one training iteration's, one stream
-    window's and one selfTrain iteration's time goes."""
+    window's, one selfTrain iteration's, one search batch's and one
+    host-rollout iteration's time goes."""
     from dasa_tpu_torch.train.trainer import World, make_agent, make_speaker
 
     agent = make_agent(cfg, world, rng_seed=seed)
@@ -1320,6 +1718,39 @@ def phase_profile(cfg, cfg_train, world, seed: int):
     selftrain_step()  # warm-up
     profile_window("selfTrain iteration (org pair + relabelled aug pair + "
                    "optim)", selftrain_step, agent.env_steps_total)
+    del agent, speaker
+    from dasa_tpu_torch.agents import search
+
+    agent = make_agent(cfg, world, rng_seed=seed)
+    speaker = make_speaker(cfg, world)
+    agent.env = world.envs["val_unseen"]
+    expansions = [0]
+    step = search._search_step
+
+    def counted(*args):
+        expansions[0] += 1
+        return step(*args)
+
+    search._search_step = counted
+    try:
+        search.beam_search(agent, speaker)  # warm-up
+        expansions[0] = 0
+        profile_window("search batch (Dijkstra, 1 candidate, speaker "
+                       "rescoring)",
+                       lambda: search.beam_search(agent, speaker),
+                       lambda: expansions[0])
+    finally:
+        search._search_step = step
+    print("    (the count above is of expansions, not agent-steps)",
+          flush=True)
+    del agent, speaker
+    agent = make_agent(cfg_train.replace(device_rollout="never"), world,
+                       rng_seed=seed)
+    agent.env = world.envs["train"]
+    agent.train(1, feedback="sample")  # warm-up
+    profile_window("host-rollout iteration (teacher + sample act/replay + "
+                   "optim)", lambda: agent.train(1, feedback="sample"),
+                   agent.env_steps_total)
 
 
 def main() -> None:
@@ -1327,7 +1758,7 @@ def main() -> None:
     ap.add_argument("--phases",
                     default="build,kernels,main,compare,train,train-compare,"
                             "stream,stream-eval,speaker,speaker-compare,"
-                            "selftrain")
+                            "selftrain,host,search")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1355,9 +1786,10 @@ def main() -> None:
         rows = phase_kernels(args.seed)
     launches_eval, launches, launches_stream = {}, {}, {}
     launches_speaker, launches_selftrain = {}, {}
+    launches_host, launches_search = {}, {}
     if phases & {"main", "compare", "train", "train-compare", "stream",
                  "stream-eval", "profile", "speaker", "speaker-compare",
-                 "selftrain"}:
+                 "selftrain", "host", "search"}:
         with tempfile.TemporaryDirectory() as root:
             cfg, world = headline_world(root, args.seed, use_pallas="always")
             cfg_train = cfg.replace(**TRAIN)
@@ -1405,13 +1837,25 @@ def main() -> None:
                       "headline width", flush=True)
                 launches_selftrain = phase_selftrain(cfg_train, args.seed,
                                                      root)
+            if "host" in phases:
+                print("== phase 12 (host): the host act/replay rollout at "
+                      "headline width: valid() with submit, train() under "
+                      "device_rollout=never, selfTrain under stream",
+                      flush=True)
+                launches_host = phase_host(cfg, cfg_train, world, args.seed,
+                                           root)
+            if "search" in phases:
+                print("== phase 13 (search): beam_valid() at headline width "
+                      "with speaker rescoring", flush=True)
+                launches_search = phase_search(cfg, world, args.seed, root)
             if "profile" in phases:
                 print("== profile: one eval batch, one training iteration, "
-                      "one stream window", flush=True)
+                      "one stream window, one selfTrain iteration, one "
+                      "search batch, one host-rollout iteration", flush=True)
                 phase_profile(cfg, cfg_train, world, args.seed)
     if rows:
-        print("== phase 2 rows with the launches of phases 3, 5, 7, 9 and 11",
-              flush=True)
+        print("== phase 2 rows with the launches of phases 3, 5, 7, 9, 11, "
+              "12 and 13", flush=True)
     for r in rows:
         base = r["name"].split("[")[0]
         per_token = ("" if "us_per_token" not in r
@@ -1421,9 +1865,10 @@ def main() -> None:
               f"launches {launches.get(base, 0)} in train(), "
               f"{launches_eval.get(base, 0)} in valid(), "
               f"{launches_stream.get(base, 0)} in train() under stream, "
-              f"{launches_speaker.get(base, 0)} in the speaker phase and "
-              f"{launches_selftrain.get(base, 0)} in selfTrain train()"
-              f"{per_token}",
+              f"{launches_speaker.get(base, 0)} in the speaker phase, "
+              f"{launches_selftrain.get(base, 0)} in selfTrain train(), "
+              f"{launches_host.get(base, 0)} in the host phase and "
+              f"{launches_search.get(base, 0)} in the searches{per_token}",
               flush=True)
     out = []
     for r in rows:
@@ -1438,6 +1883,8 @@ def main() -> None:
                     "launches_stream": launches_stream.get(base, 0),
                     "launches_speaker": launches_speaker.get(base, 0),
                     "launches_selftrain": launches_selftrain.get(base, 0),
+                    "launches_host": launches_host.get(base, 0),
+                    "launches_search": launches_search.get(base, 0),
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -1,9 +1,9 @@
-"""The navigation agent: episodic device training and argmax evaluation.
+"""The navigation agent: device and host rollouts, training and evaluation.
 
 Counterpart of ``dasa_tpu/agents/seq2seq.py`` (reference
 r2r_src/agent_dg.py:58-100, 633-1510).  Feature tables and env tables live
 on the device, and the graph walk is tensor gathers
-(``env/device_env.py``), so no host env runs mid-episode:
+(``env/device_env.py``), so the device paths run no host env mid-episode:
 
 - evaluation (``_device_eval_fn`` :2023, ``test`` :2143): one batch runs
   its whole argmax episode as a Python loop over ``max_action`` steps; the
@@ -16,18 +16,31 @@ on the device, and the graph walk is tensor gathers
   accumulates both passes' gradients in the parameters' ``.grad``;
   ``optim_step`` applies them.
 
-Dropout masks, the env-drop noise and sampled actions draw from one
-``torch.Generator`` reseeded per rollout from (seed, rollout counter), the
-JAX agent's ``fold_in(_base_rng, _rollout_counter)``; the two frameworks'
-streams differ, so parity with the JAX package holds with dropout off and
-the noise passed in.  Under ``rollout_mode="stream"`` training and
-evaluation run the continuous-batching windows of ``agents/stream.py``
-instead.  selfTrain back-translation (a ``speaker`` handed to
-``accumulate_gradient``) relabels each episodic batch before its pass.
-The host act/replay rollout (and with it selfTrain under stream), the
-combined 2B-wide program (``fuse_passes="auto"``, which the stream regime
-overrides, as in the JAX agent), ``remat`` other than ``never`` and data
-parallel raise ``NotImplementedError`` (ROADMAP.md).
+The host act/replay rollout (``rollout`` :1685) steps the host env
+instead: an act step per env step (the policy under ``no_grad``, then a
+masked argmax, a sample or the teacher), then, when training, ONE replay
+of the recorded episode through the device teacher pass's replay body.
+It serves ``device_rollout="never"``, ``--submit`` (the visited-candidate
+mask needs the host's per-episode visited sets), ``test(iters=...)`` and
+selfTrain under stream.  Both phases take the top BiLSTM on its plain
+path, as the JAX act and replay pass no ``lstm_pallas``
+(``seq2seq.py:167-172``), so that the replay scores what the act step
+computed; under ``use_pallas="always"`` the AdaIN gate and the shift
+attention run their kernels in both.
+
+The device passes draw dropout masks, the env-drop noise and sampled
+actions from one ``torch.Generator`` reseeded per rollout from (seed,
+rollout counter), the JAX agent's ``fold_in(_base_rng,
+_rollout_counter)``; the host rollout draws from a generator per (step,
+stream) (:class:`PassStreams`).  The two frameworks' streams differ, so
+parity with the JAX package holds with dropout off and the noise passed
+in.  Under ``rollout_mode="stream"`` training and evaluation run the
+continuous-batching windows of ``agents/stream.py`` instead.  selfTrain
+back-translation (a ``speaker`` handed to ``accumulate_gradient``)
+relabels each batch before its pass.  The combined 2B-wide program
+(``fuse_passes="auto"``, which the stream regime overrides, as in the JAX
+agent), ``remat`` other than ``never`` and data parallel raise
+``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -128,6 +141,42 @@ def _stack(recs: List[dict]) -> dict:
     return {key: torch.stack([r[key] for r in recs]) for key in recs[0]}
 
 
+class PassStreams:
+    """Where one training pass draws its randomness.
+
+    With ``gen``, every draw comes from that generator in call order (the
+    device passes).  Otherwise each (step, stream) has a generator of its
+    own, seeded from ``seed`` as the JAX agent folds the step and the
+    stream into its rollout key (``seq2seq.py:351-356``, ``:431-433``):
+    stream 0 draws step ``t``'s percept dropout, 1 its decoder dropout, 2
+    a sampled action; step -1 is the rollout's own (0 the env-drop noise,
+    1 the text encoder's dropout).  The host act step and its replay then
+    draw the same masks: the replay's batched percepts take the list of
+    the steps' generators, one block of rows each
+    (``models/layers.py:dropout``)."""
+
+    def __init__(self, device, seed: int = 0,
+                 gen: Optional[torch.Generator] = None):
+        self.device, self.seed, self.gen = device, seed, gen
+
+    def at(self, t: int, stream: int) -> torch.Generator:
+        if self.gen is not None:
+            return self.gen
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((self.seed * 4096 + t + 1) * 4 + stream)
+        return gen
+
+    def steps(self, n: int, stream: int):
+        """The generator(s) of steps 0..n-1's rows batched together."""
+        if self.gen is not None:
+            return self.gen
+        return [self.at(t, stream) for t in range(n)]
+
+    @property
+    def text(self) -> torch.Generator:
+        return self.at(-1, 1)
+
+
 class Seq2SeqAgent(StreamMixin):
     """Listener agent for the DASA dg path: episodic or streamed device
     training (teacher-ML + sampled A2C) and argmax evaluation.
@@ -172,6 +221,7 @@ class Seq2SeqAgent(StreamMixin):
         self._gen = torch.Generator(device=self.device)
         self._rollout_counter = 0
         self._env_steps_log: List[torch.Tensor] = []
+        self._pending_replays: List[dict] = []
         self.losses: List[torch.Tensor] = []
         self.logs = defaultdict(list)
 
@@ -237,6 +287,9 @@ class Seq2SeqAgent(StreamMixin):
         return self._dev_env_cache[key][1]
 
     def use_device_rollout(self) -> bool:
+        """The device paths serve a rollout unless ``device_rollout`` is
+        ``never`` or ``submit`` asks for the visited-candidate mask (the
+        host rollout serves those)."""
         if self.cfg.device_rollout == "never" or self.env is None:
             return False
         return not self.cfg.submit and getattr(self.env, "graphs",
@@ -244,6 +297,17 @@ class Seq2SeqAgent(StreamMixin):
 
     def _put(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x)).to(self.device)
+
+    def _put_sobs(self, sobs: dict) -> dict:
+        """A host observation record on the device; integer fields as
+        int64 (indices), as the device paths record them."""
+        out = {}
+        for key, val in sobs.items():
+            val = np.asarray(val)
+            if val.dtype.kind in "iu":
+                val = val.astype(np.int64)
+            out[key] = self._put(val)
+        return out
 
     def _batch_inputs(self):
         """Reset the env to its next minibatch; device inputs of it."""
@@ -361,26 +425,33 @@ class Seq2SeqAgent(StreamMixin):
 
     def test(self, use_dropout: bool = False, feedback: str = "argmax",
              iters: Optional[int] = None) -> List[dict]:
-        """Loop device eval batches until the dataset wraps
-        (BaseAgent.test, agent_dg.py:58-100), or stream the split through
-        the slots under ``rollout_mode="stream"`` (seq2seq.py:2158-2161).
-        Only the argmax, dropout-free, whole-split evaluation is ported."""
-        if (feedback != "argmax" or use_dropout or iters is not None
-                or not self.use_device_rollout()):
-            raise NotImplementedError(
-                "Seq2SeqAgent.test: only the argmax device evaluation of a "
-                "whole split is ported (no dropout, iters, submit or host "
-                "rollout; ROADMAP.md)")
+        """Loop rollouts until the dataset wraps (BaseAgent.test,
+        agent_dg.py:58-100; seq2seq.py:2143-2172), or run ``iters``
+        batches of a shuffled epoch.  The argmax, dropout-free evaluation
+        of a whole split runs on the device (streamed under
+        ``rollout_mode="stream"``); the rest runs the host rollout, which
+        evaluates without dropout whatever ``use_dropout`` says, as the
+        JAX agent does."""
         self.results = {}
         env = self.env
-        env.reset_epoch(shuffle=False)
-        if self.use_stream_rollout():
+        env.reset_epoch(shuffle=iters is not None)
+        device_eval = (feedback == "argmax" and not use_dropout
+                       and iters is None and self.use_device_rollout())
+        if iters is not None:
+            for _ in range(iters):
+                self.rollout(train_ml=None, train_rl=False,
+                             feedback=feedback)
+        elif device_eval and self.use_stream_rollout():
             self.stream_test_loop()
-            return list(self.results.values())
-        for _ in range(env.size() // env.batch_size + 2):
-            self._device_test_batch()
-            if len(self.results) >= env.size():
-                break
+        else:
+            for _ in range(env.size() // env.batch_size + 2):
+                if device_eval:
+                    self._device_test_batch()
+                else:
+                    self.rollout(train_ml=None, train_rl=False,
+                                 feedback=feedback)
+                if len(self.results) >= env.size():
+                    break
         return list(self.results.values())
 
     def get_results(self) -> List[dict]:
@@ -395,14 +466,14 @@ class Seq2SeqAgent(StreamMixin):
     def iter_count(self) -> int:
         return self.optimizer.iteration
 
-    def _require_device_training(self) -> None:
-        """Training paths of the JAX agent that this port leaves out."""
+    def _require_ported_training(self) -> None:
+        """Training options of the JAX agent that this port leaves out:
+        ``remat``, and the combined program, which only the episodic
+        device pair would run."""
         cfg = self.cfg
         missing = []
-        if not self.use_device_rollout():
-            missing.append("the host act/replay rollout (device_rollout="
-                           "never, submit, or an env without graphs)")
-        if cfg.fuse_passes != "never" and not self.use_stream_rollout():
+        if (cfg.fuse_passes != "never" and self.use_device_rollout()
+                and not self.use_stream_rollout()):
             missing.append("the combined 2B-wide program (fuse_passes=auto)")
         if cfg.remat != "never":
             missing.append(f"remat={cfg.remat!r}")
@@ -410,7 +481,8 @@ class Seq2SeqAgent(StreamMixin):
             raise NotImplementedError(
                 "Seq2SeqAgent training: " + "; ".join(missing)
                 + " is not ported (ROADMAP.md); the port trains the "
-                "episodic and the streamed device regimes")
+                "episodic and streamed device regimes and the host "
+                "act/replay rollout")
 
     def _rollout_generator(self) -> torch.Generator:
         """The generator of the next rollout, reseeded from (seed, rollout
@@ -546,20 +618,24 @@ class Seq2SeqAgent(StreamMixin):
         the percepts of ALL steps and of the A2C bootstrap run as ONE
         ((T+1) * B)-row batch (the top BiLSTM on its plain path, as the
         JAX replay passes no ``lstm_pallas``), then the decoder steps
-        through the recorded observations and actions.  Returns (loss,
-        logs)."""
+        through the recorded observations and actions.  ``gen`` is a
+        generator or the host rollout's :class:`PassStreams`.  Returns
+        (loss, logs)."""
         cfg, policy = self.cfg, self.policy
         n_steps, batch = rewards.shape
         rep = n_steps + 1
+        streams = (gen if isinstance(gen, PassStreams)
+                   else PassStreams(self.device, gen=gen))
         cached = policy.encode_text(instr, valid, seq_len,
-                                    deterministic=False, gen=gen)
+                                    deterministic=False, gen=streams.text)
         flat = {key: torch.cat([stacked[key], final_sobs[key][None]]).flatten(
             0, 1) for key in REC_KEYS}
         percepts = policy.percept_step(
             {"text_embeds": cached["text_embeds"].repeat(rep, 1, 1)},
             valid.repeat(rep, 1), seq_len.repeat(rep),
             make_step_inputs(cfg, self.tables, flat), lstm_kernel=False,
-            deterministic=False, env_noise=env_noise, gen=gen)
+            deterministic=False, env_noise=env_noise,
+            gen=streams.steps(rep, 0))
 
         def percept_at(t):
             def part(x):
@@ -579,12 +655,14 @@ class Seq2SeqAgent(StreamMixin):
             sobs = {key: val[t] for key, val in stacked.items()}
             state, logit, value, _aux = policy.decode_from_percept(
                 percept_at(t), valid, state, sobs["is_first"],
-                deterministic=False, already_dropfeat=dropfeat, gen=gen)
+                deterministic=False, already_dropfeat=dropfeat,
+                gen=streams.at(t, 1))
             outs.append(self._step_outs(logit, value, sobs, sobs["action"],
                                         sobs["active"]))
         _, _, last_value, _ = policy.decode_from_percept(
             percept_at(n_steps), valid, state, final_sobs["is_first"],
-            deterministic=False, already_dropfeat=dropfeat, gen=gen)
+            deterministic=False, already_dropfeat=dropfeat,
+            gen=streams.at(n_steps, 1))
         last_value = last_value.detach().float()
         g0 = torch.where(final_ended, torch.zeros_like(last_value),
                          last_value)
@@ -684,7 +762,7 @@ class Seq2SeqAgent(StreamMixin):
         back-translation, agent_dg.py:656-675).  ``env_noise`` replaces
         the drawn env-drop noise; ``record`` receives a sampled / argmax
         episode (both for tests)."""
-        self._require_device_training()
+        self._require_ported_training()
         feedback = feedback or self.cfg.feedback
         train_rl = train_rl and feedback == "sample"
         dev, ep, instr, valid, seq_len, gen, noise = \
@@ -712,53 +790,265 @@ class Seq2SeqAgent(StreamMixin):
             self.logs[key].append(val.detach())
         self.losses.append(loss.detach())
 
+    # ------------------------------------------------------------------
+    # the host act/replay rollout (seq2seq.py:1661-1905)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _to_sobs(obs, ended: np.ndarray, visited_mask,
+                 is_first: bool) -> dict:
+        """A host observation as the replay records it (seq2seq.py:1661):
+        the logit mask hides the slots past STOP and, under ``submit``,
+        the candidates already visited; ``action`` is filled in later."""
+        k = obs.cand_point_id.shape[1]
+        logit_mask = np.arange(k)[None, :] > obs.cand_n[:, None]
+        if visited_mask is not None:
+            logit_mask = logit_mask | visited_mask
+        b = obs.batch_size()
+        return {
+            "feat_row": obs.feat_row, "view_index": obs.view_index,
+            "heading": obs.heading, "elevation": obs.elevation,
+            "cand_point_id": obs.cand_point_id,
+            "cand_heading": obs.cand_heading,
+            "cand_elevation": obs.cand_elevation, "cand_n": obs.cand_n,
+            "teacher": obs.teacher, "back_teacher": obs.back_teacher,
+            "logit_mask": logit_mask, "active": ~ended,
+            "is_first": np.full(b, is_first, bool),
+            "action": np.zeros(b, np.int64),
+        }
+
+    def _host_streams(self) -> PassStreams:
+        """The next host rollout's streams, seeded from (seed, rollout
+        counter) as :meth:`_rollout_generator` seeds a device pass."""
+        streams = PassStreams(self.device,
+                              self._seed * 1_000_003 + self._rollout_counter)
+        self._rollout_counter += 1
+        return streams
+
+    @torch.no_grad()
+    def _act_step(self, cached, valid, seq_len, state: DecoderState,
+                  sobs: dict, feedback: str, training: bool, noise,
+                  streams: PassStreams, t: int):
+        """One act step of the host rollout (``_act_fn``,
+        seq2seq.py:341-382): the percept and the decoder step, with step
+        ``t``'s dropout streams when training and the top BiLSTM on its
+        plain path, as the replay takes it; then the masked argmax or a
+        sample from stream 2.  Returns (state, action)."""
+        cfg, policy = self.cfg, self.policy
+        percept = policy.percept_step(
+            cached, valid, seq_len, make_step_inputs(cfg, self.tables, sobs),
+            lstm_kernel=False, deterministic=not training, env_noise=noise,
+            gen=streams.at(t, 0) if training else None)
+        state, logit, _value, _aux = policy.decode_from_percept(
+            percept, valid, state, sobs["is_first"],
+            deterministic=not training, already_dropfeat=noise is not None,
+            gen=streams.at(t, 1) if training else None)
+        masked = logit.float().masked_fill(sobs["logit_mask"], NEG_INF)
+        if feedback == "argmax":
+            action = masked.argmax(dim=-1)
+        elif feedback == "sample":
+            action = torch.multinomial(torch.softmax(masked, dim=-1), 1,
+                                       generator=streams.at(t, 2))[:, 0]
+        else:
+            raise ValueError(feedback)
+        return state, action
+
+    def rollout(self, train_ml: Optional[float] = None,
+                train_rl: bool = True, reset: bool = True, speaker=None,
+                feedback: Optional[str] = None, defer_grad: bool = False,
+                env_noise: Optional[torch.Tensor] = None) -> List[dict]:
+        """One episode batch on the host env (seq2seq.py:1685-1847,
+        agent_dg.py:633-1033): act steps until every row has stopped (the
+        teacher needs no policy), recording each step.  With ``train_ml``
+        or ``train_rl`` the recorded episode, padded to 8 steps or to
+        ``max_action`` (padding exists only once every row has ended, so
+        it is inert), is replayed for the IL + A2C loss whose gradients
+        autograd adds to ``.grad``; ``defer_grad`` queues the replay for
+        :meth:`flush_replays`.  ``speaker`` relabels the batch first;
+        ``env_noise`` replaces the drawn env-drop noise (for tests).
+        Records every trajectory in ``results``; returns them."""
+        cfg = self.cfg
+        feedback = feedback or cfg.feedback
+        # teacher / argmax feedback never trains RL (agent_dg.py:643-644)
+        train_rl = train_rl and feedback == "sample"
+        training = train_ml is not None or train_rl
+        if training:
+            self._require_ported_training()
+        env = self.env
+        obs = env.reset() if reset else env._get_obs()
+        batch = obs.batch_size()
+        streams = self._host_streams()
+        # the reference draws the env-drop mask through an nn.Dropout: all
+        # ones at evaluation (agent_dg.py:657, 677)
+        noise = None
+        if (training and cfg.consistent_drop) or speaker is not None:
+            noise = (self._noise_fn(streams.at(-1, 0)) if env_noise is None
+                     else env_noise.to(self.device, self.dtype))
+        if speaker is not None:
+            obs = speaker.relabel_batch(env, noise)
+        instr = self._put(obs.instr).long()
+        valid = self._put(~obs.pad_mask)
+        seq_len = self._put(obs.seq_len).long()
+        cached = None
+        if feedback != "teacher":
+            with torch.no_grad():
+                cached = self.policy.encode_text(
+                    instr, valid, seq_len, deterministic=not training,
+                    gen=streams.text if training else None)
+        trajs = [[t] for t in env.state_tuples()]
+        instr_ids = env.instr_ids()
+        ended = np.zeros(batch, bool)
+        last_dist = obs.distance.copy()
+        # node-index visited sets; the current node joins before masking
+        # (agent_dg.py:836-841)
+        visited = [set() for _ in range(batch)] if cfg.submit else None
+        zeros = torch.zeros(batch, decoder_state_width(cfg),
+                            dtype=self.dtype, device=self.device)
+        state = DecoderState(zeros, zeros, zeros)
+        records, rewards, rl_masks = [], [], []
+        for t in range(cfg.max_action):
+            visited_mask = None
+            if visited is not None:
+                nodes = env.current_nodes()
+                visited_mask = np.zeros_like(obs.cand_point_id, bool)
+                for i in range(batch):
+                    visited[i].add(int(nodes[i]))
+                    visited_mask[i] = np.isin(obs.cand_nbr_ix[i],
+                                              list(visited[i]))
+            sobs = self._to_sobs(obs, ended, visited_mask, t == 0)
+            if feedback == "teacher":
+                a = sobs["teacher"]
+            else:
+                state, action = self._act_step(
+                    cached, valid, seq_len, state, self._put_sobs(sobs),
+                    feedback, training, noise, streams, t)
+                a = action.cpu().numpy()
+            # STOP (slot cand_n and past) or an ended row: env action -1
+            a_env = np.where((a >= obs.cand_n) | ended, -1, a)
+            sobs["action"] = np.minimum(a, obs.cand_n).astype(np.int64)
+            records.append(sobs)
+            obs = env.step(a_env, trajs)
+            dist = obs.distance
+            rewards.append(np.where(
+                ended, 0.0, np.where(a_env == -1,
+                                     np.where(dist < 3.0, 2.0, -2.0),
+                                     np.sign(last_dist - dist))
+            ).astype(np.float32))
+            rl_masks.append((~ended).astype(np.float32))
+            last_dist = dist.copy()
+            self.total_env_steps += int((~ended).sum())
+            ended = ended | (a_env == -1)
+            if ended.all():
+                break
+        for iid, tr in zip(instr_ids, trajs):
+            self.results[iid] = {"instr_id": iid, "trajectory": tr}
+        if training:
+            bucket = min(8, cfg.max_action)
+            n_steps = bucket if len(records) <= bucket else cfg.max_action
+            while len(records) < n_steps:
+                pad = {k: v.copy() for k, v in records[-1].items()}
+                pad["active"] = np.zeros_like(pad["active"])
+                pad["is_first"] = np.zeros_like(pad["is_first"])
+                records.append(pad)
+                rewards.append(np.zeros(batch, np.float32))
+                rl_masks.append(np.zeros(batch, np.float32))
+            replay = {
+                "instr": instr, "valid": valid, "seq_len": seq_len,
+                "stacked": {k: np.stack([r[k] for r in records])
+                            for k in records[0]},
+                "final_sobs": self._to_sobs(obs, ended, None, False),
+                "rewards": np.stack(rewards), "rl_masks": np.stack(rl_masks),
+                "final_ended": ended, "streams": streams, "noise": noise,
+                "weights": (train_ml if train_ml is not None else 0.0,
+                            1.0 if train_rl else 0.0,
+                            0.01 if train_rl else 0.0)}
+            if defer_grad:
+                self._pending_replays.append(replay)
+            else:
+                self._run_replays([replay])
+        return [{"instr_id": iid, "path": tr}
+                for iid, tr in zip(instr_ids, trajs)]
+
+    def _run_replays(self, replays: List[dict]) -> None:
+        """Each recorded episode's IL + A2C loss and its backward
+        (seq2seq.py:1854-1905), one after another: the JAX agent's fusing
+        of two replays of one length into one vmapped program is a
+        code-generation choice, and the summed gradients are the same."""
+        for rep in replays:
+            with self._cast_params_once():
+                loss, logs = self._replay_loss(
+                    rep["instr"], rep["valid"], rep["seq_len"],
+                    self._put_sobs(rep["stacked"]),
+                    self._put_sobs(rep["final_sobs"]),
+                    self._put(rep["rewards"]), self._put(rep["rl_masks"]),
+                    self._put(rep["final_ended"]), rep["streams"],
+                    rep["noise"], *rep["weights"])
+            loss.backward()
+            for key, val in logs.items():
+                self.logs[key].append(val.detach())
+            self.losses.append(loss.detach())
+
+    def flush_replays(self) -> None:
+        """Run the replays ``rollout(defer_grad=True)`` queued."""
+        if self._pending_replays:
+            pending, self._pending_replays = self._pending_replays, []
+            self._run_replays(pending)
+
+    # ------------------------------------------------------------------
+    # the training loop (seq2seq.py:1907-2021)
+    # ------------------------------------------------------------------
     def env_steps_total(self) -> int:
-        """(episode, step) pairs processed: the evaluation counter plus the
-        training rollouts' device counts (seq2seq.py:1565; fetches them)."""
+        """(episode, step) pairs processed: the host counter (evaluation,
+        host rollouts) plus the device rollouts' counts (seq2seq.py:1565;
+        fetches them)."""
         return self.total_env_steps + sum(int(x) for x in
                                           self._env_steps_log)
 
     def zero_grad(self) -> None:
         self.policy.zero_grad(set_to_none=True)
+        self._pending_replays = []
         self.losses = []
 
     def accumulate_gradient(self, feedback: str = "teacher",
                             ml_weight: Optional[float] = None,
                             speaker=None) -> None:
-        """The device branch of the two-pass accumulation
-        (seq2seq.py:1912, agent_dg.py:1347-1384): a teacher pass at
-        ``teacher_weight``, or a teacher-ML pass at ``ml_weight``
-        (default ``cfg.ml_weight``; the aug alternation passes the org /
-        aug weights) followed by a sampled A2C pass; under stream, one
-        streamed window instead of the pair (seq2seq.py:1936-1944).  A
-        ``speaker`` relabels each pass's batch first (selfTrain); its
-        decode records no graph, so the speaker's parameters get no
-        gradient."""
+        """The two-pass accumulation (seq2seq.py:1912, agent_dg.py:
+        1347-1384): a teacher pass at ``teacher_weight``, or a teacher-ML
+        pass at ``ml_weight`` (default ``cfg.ml_weight``; the aug
+        alternation passes the org / aug weights) followed by a sampled
+        A2C pass; under stream, one streamed window instead of the pair
+        (seq2seq.py:1936-1944).  The passes run on the device, or as host
+        rollouts where the device paths do not serve: ``device_rollout=
+        "never"``, ``submit``, and selfTrain under stream, whose slots
+        refill mid-window (seq2seq.py:1924-1932).  A ``speaker`` relabels
+        each pass's batch first (selfTrain); its decode records no graph,
+        so the speaker's parameters get no gradient."""
         cfg = self.cfg
         if ml_weight is None:
             ml_weight = cfg.ml_weight
-        if speaker is not None and self.use_stream_rollout():
-            # the JAX agent falls back to the host rollout here, since the
-            # stream's slots refill mid-window (seq2seq.py:1924-1932)
-            raise NotImplementedError(
-                "selfTrain under rollout_mode=stream needs the host "
-                "act/replay rollout (ROADMAP.md section 1, item 3)")
-        if feedback == "teacher":
-            self.device_rollout(train_ml=cfg.teacher_weight, train_rl=False,
-                                feedback="teacher", speaker=speaker)
+        if feedback not in ("teacher", "sample"):
+            raise ValueError(feedback)
+        if not self.use_device_rollout() or (
+                speaker is not None and self.use_stream_rollout()):
+            run = self.rollout
         elif feedback == "sample" and self.use_stream_rollout():
             self.device_rollout_stream(ml_weight, feedback="sample")
-        elif feedback == "sample":
-            self.device_rollout(train_ml=ml_weight, train_rl=False,
-                                feedback="teacher", speaker=speaker)
-            self.device_rollout(train_ml=None, train_rl=True,
-                                feedback="sample", speaker=speaker)
+            return
         else:
-            raise ValueError(feedback)
+            run = self.device_rollout
+        if feedback == "teacher":
+            run(train_ml=cfg.teacher_weight, train_rl=False,
+                feedback="teacher", speaker=speaker)
+        else:
+            run(train_ml=ml_weight, train_rl=False, feedback="teacher",
+                speaker=speaker)
+            run(train_ml=None, train_rl=True, feedback="sample",
+                speaker=speaker)
 
     def optim_step(self) -> None:
-        """Apply the accumulated gradients (seq2seq.py:1981), then clear
-        them; a no-op when nothing was accumulated."""
+        """Run the queued replays, apply the accumulated gradients
+        (seq2seq.py:1981), then clear them; a no-op when nothing was
+        accumulated."""
+        self.flush_replays()
         if all(p.grad is None for p in self.policy.parameters()):
             return
         self.optimizer.step()
@@ -768,7 +1058,8 @@ class Seq2SeqAgent(StreamMixin):
         """``n_iters`` optimizer iterations (seq2seq.py:1990): zero_grad,
         the teacher pass (and, under ``sample``, the sampled A2C pass after
         a teacher-ML pass at ``ml_weight`` unless it is 0; under stream,
-        one streamed window), optim_step."""
+        one streamed window), optim_step.  The passes are device passes
+        or host rollouts as :meth:`accumulate_gradient` says."""
         for _ in range(n_iters):
             self.zero_grad()
             if feedback == "teacher":
@@ -777,11 +1068,12 @@ class Seq2SeqAgent(StreamMixin):
                 self.device_rollout_stream(self.cfg.ml_weight,
                                            feedback="sample")
             elif feedback == "sample":
+                run = (self.device_rollout if self.use_device_rollout()
+                       else self.rollout)
                 if self.cfg.ml_weight != 0:
-                    self.device_rollout(train_ml=self.cfg.ml_weight,
-                                        train_rl=False, feedback="teacher")
-                self.device_rollout(train_ml=None, train_rl=True,
-                                    feedback="sample")
+                    run(train_ml=self.cfg.ml_weight, train_rl=False,
+                        feedback="teacher")
+                run(train_ml=None, train_rl=True, feedback="sample")
             else:
                 raise ValueError(feedback)
             self.optim_step()

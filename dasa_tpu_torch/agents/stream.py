@@ -25,10 +25,12 @@ there, tests/test_torch_stream.py holds the port to the JAX package):
   non-blocking copy to pinned memory behind a CUDA event), so the
   training loop never waits on the card inside a window.
 
-Only one device (``D = 1``): data parallel is its own slice.  Not ported
-(ROADMAP.md): the mesh window (``_stream_shard_map``), ``precompile_stream``
-(JAX AOT; eager torch compiles nothing), the auxiliary loss heads, and
-selfTrain under stream.  ``stream_unroll`` is a ``lax.scan`` codegen knob
+Only one device (``D = 1``): data parallel is its own slice.  selfTrain
+under stream does not stream: its relabelled passes fall back to the host
+act/replay pair (``Seq2SeqAgent.accumulate_gradient``), as in the JAX
+agent.  Not ported (ROADMAP.md): the mesh window (``_stream_shard_map``),
+``precompile_stream`` (JAX AOT; eager torch compiles nothing) and the
+auxiliary loss heads.  ``stream_unroll`` is a ``lax.scan`` codegen knob
 with no effect here.
 """
 
@@ -558,7 +560,7 @@ class StreamMixin:
         (the flow counters are read lagged); ``record=True`` also keeps
         the slot-time grids in ``st.records``, as tensors on the device
         (tests, and the on-card check that no episode is taken twice)."""
-        self._require_device_training()
+        self._require_ported_training()
         cfg = self.cfg
         st = self._stream_host()
         fresh, f_n, sent = self._stage_stream_fresh(st)

@@ -5,14 +5,21 @@
     python -m dasa_tpu_torch.cli --train auglistener --aug <json>
         --selfTrain --speaker <ckpt> ...   # speaker back-translation
     python -m dasa_tpu_torch.cli --train validlistener [--load <ckpt>]
+        [--submit]                         # submit_{split}.json files
+    python -m dasa_tpu_torch.cli --train validlistener --beam
+        [--speaker <ckpt>] [--candidates K] [--param_search]
+    python -m dasa_tpu_torch.cli --train beamvalid ...  # the same search
+    python -m dasa_tpu_torch.cli --train simpleagents   # Stop / Random /
+                                                        # Shortest
     python -m dasa_tpu_torch.cli --train speaker ...
     python -m dasa_tpu_torch.cli --train validspeaker [--load <ckpt>]
 
 The flags are ``train.py``'s (the reference's spellings and snake_case),
 parsed by the port's copy of the config.  ``--device`` picks the device
-(CUDA by default; ``--device cpu`` for a small run without a card).  The
-other ``--train`` modes and ``--beam`` come with later slices
-(ROADMAP.md).
+(CUDA by default; ``--device cpu`` for a small run without a card).
+``--search_type state_factored`` picks the speaker-follower search for
+``--beam`` / ``beamvalid``.  ``pretrain`` and the NDH modes come with
+later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,16 +40,32 @@ def main(argv=None) -> None:
     print(cfg.to_json())
     if cfg.train in ("listener", "auglistener"):
         trainer.train(cfg, device=known.device)
-    elif cfg.train == "validlistener" and not cfg.beam:
+    elif cfg.train == "validlistener" and cfg.beam:
+        # Dijkstra-search validation (train.py:530-579)
+        trainer.beam_valid(cfg, device=known.device)
+    elif cfg.train == "validlistener":
         trainer.valid(cfg, device=known.device)
+    elif cfg.train == "beamvalid":
+        trainer.beam_valid(cfg, device=known.device)
+    elif cfg.train == "simpleagents":
+        from dasa_tpu_torch.agents.simple import eval_simple_agents
+
+        world = trainer.World(cfg)
+        for env_name in ("val_seen", "val_unseen"):
+            out = eval_simple_agents(world.envs[env_name],
+                                     world.evaluators[env_name],
+                                     episode_len=cfg.max_action)
+            for agent_name, summary in out.items():
+                print("%s %s: %s" % (env_name, agent_name, ", ".join(
+                    "%s: %.4f" % (m, v) for m, v in summary.items())),
+                    flush=True)
     elif cfg.train == "speaker":
         trainer.train_speaker(cfg, device=known.device)
     elif cfg.train == "validspeaker":
         trainer.valid_speaker(cfg, device=known.device)
     else:
         raise NotImplementedError(
-            f"--train {cfg.train}{' --beam' if cfg.beam else ''} is not "
-            "ported yet (ROADMAP.md)")
+            f"--train {cfg.train} is not ported yet (ROADMAP.md)")
 
 
 if __name__ == "__main__":

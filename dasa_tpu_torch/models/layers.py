@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 from torch import nn
@@ -25,15 +25,22 @@ from dasa_tpu_torch.ops.shift_attention import shift_attend_fn
 NEG_INF = -1e9  # softmax mask value (finite to keep grads NaN-free)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            gen: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
     """Inverted dropout drawing its mask from ``gen`` (flax ``nn.Dropout``:
     keep with probability 1 - rate, scale kept values by 1 / (1 - rate)).
-    ``gen`` None or ``rate`` 0 is the identity."""
+    ``gen`` None or ``rate`` 0 is the identity.  ``gen`` may also be a
+    list of generators, one per equal block of ``x``'s leading rows: a
+    batch of several steps' rows then draws each step's mask as that step
+    alone would (the host replay's batched percepts)."""
     if gen is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), 0.0)
+    if isinstance(gen, torch.Generator):
+        u = torch.rand(x.shape, generator=gen, device=x.device)
+    else:
+        block = (x.shape[0] // len(gen), *x.shape[1:])
+        u = torch.cat([torch.rand(block, generator=g, device=x.device)
+                       for g in gen])
+    return torch.where(u >= rate, x / (1.0 - rate), 0.0)
 
 
 @contextlib.contextmanager

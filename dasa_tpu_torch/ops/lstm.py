@@ -461,5 +461,11 @@ class BiLstmScanFn(torch.autograd.Function):
 
 def bilstm_scan_fn(xw, mask, h0, c0, wh) -> Tuple[torch.Tensor, torch.Tensor]:
     """``BiLstmScanFn.apply``: both directions with gradients; ``wh`` is a
-    (2, H, 4H) tensor or a pair of (H, 4H) tensors."""
+    (2, H, 4H) tensor or a pair of (H, 4H) tensors.  A pure forward (grad
+    mode off, or no input requiring grad) calls :func:`bilstm_scan`
+    directly: no gate activations are written and no autograd node
+    holds the outputs."""
+    if not (torch.is_grad_enabled()
+            and any(x.requires_grad for x in (xw, h0, c0, wh[0], wh[1]))):
+        return bilstm_scan(xw, mask, h0, c0, wh)
     return BiLstmScanFn.apply(xw, mask, h0, c0, wh[0], wh[1])

@@ -1,4 +1,5 @@
-"""Synthetic navigation worlds for tests and smoke runs.
+"""Synthetic navigation worlds for tests and smoke runs, and the CPU
+test suite's thread setting.
 
 The R2R connectivity graphs are not redistributable with this repository,
 so tests and ``chip_smoke.py`` write small worlds of their own in the same
@@ -10,6 +11,7 @@ reads: one entry per viewpoint with ``image_id``, a flat row-major 4x4
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from typing import Sequence
@@ -53,3 +55,19 @@ def write_synthetic_connectivity(out_dir: str, scans: Sequence[str],
         with open(os.path.join(out_dir, f"{scan}_connectivity.json"),
                   "w") as f:
             json.dump(entries, f)
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run the block with ``n`` intra-op torch threads, then restore the
+    count.  The CPU test suite runs in parallel worker processes on a few
+    cores: its tiny-width ops gain nothing from more threads, and each
+    worker's idle threads spinning on every core slow all the others."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)

@@ -1,15 +1,16 @@
 """World setup and the ``listener`` / ``auglistener`` / ``validlistener``
-/ ``speaker`` / ``validspeaker`` entry points.
+(with ``--submit`` or ``--beam``) / ``beamvalid`` / ``speaker`` /
+``validspeaker`` entry points.
 
 Counterpart of ``World``, ``make_agent``, ``run_validation``, ``train``,
-``train_speaker``, ``valid_speaker`` and ``valid`` in
-``dasa_tpu/train/trainer.py`` (reference r2r_src/train.py:110-421).  Beam
-validation, NDH worlds and the data-parallel mesh come with later slices
-(ROADMAP.md).
+``beam_valid``, ``train_speaker``, ``valid_speaker`` and ``valid`` in
+``dasa_tpu/train/trainer.py`` (reference r2r_src/train.py:110-517).  NDH
+worlds and the data-parallel mesh come with later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from collections import defaultdict
@@ -236,6 +237,91 @@ def train(cfg: Config, world: Optional[World] = None, device=None,
     return agent
 
 
+def beam_valid(cfg: Config, world: Optional[World] = None, device=None,
+               agent: Optional[Seq2SeqAgent] = None,
+               speaker: Optional[SpeakerAgent] = None) -> Dict[str, dict]:
+    """Search-based validation with speaker / listener score mixing
+    (train.py:424-517, ``dasa_tpu/train/trainer.py:264``): every val
+    split searched, by Dijkstra (agent_dg.py:1038-1325) or, under
+    ``search_type="state_factored"``, the speaker-follower's search
+    (follower.py:987-999), each path rescored by the speaker, and the
+    path with the best ``cal_score`` picked; its trajectory follows the
+    exploration path.  ``param_search`` scores every alpha in 0..1 by
+    0.05 for each averaging choice and returns the logs; otherwise
+    ``alpha`` with both averages, and ``submit`` writes the picks.  The
+    speaker is built on the train env at the Config's speaker widths and
+    loaded from ``cfg.speaker`` when set; ``agent`` and ``speaker`` reuse
+    ones already built."""
+    from dasa_tpu_torch.agents.search import (
+        beam_search_test,
+        cal_score,
+        state_factored_search_test,
+    )
+
+    world = world or World(cfg)
+    agent = agent or make_agent(cfg, world, device=device)
+    if speaker is None:
+        speaker = make_speaker(cfg, world, device=agent.device)
+        if cfg.speaker is not None:
+            speaker.load(cfg.speaker)
+    if cfg.load is not None:
+        print("Loaded listener at iter %d" % agent.load(cfg.load))
+
+    out = {}
+    for env_name, env in world.envs.items():
+        if env_name in ("train", "aug"):
+            continue
+        agent.env = env
+        speaker.env = env
+        if cfg.search_type == "state_factored":
+            results = state_factored_search_test(
+                agent, speaker, cfg.candidates, cfg.successor_size,
+                max_expansions=cfg.max_expansions or 80)
+        else:
+            results = beam_search_test(agent, speaker, cfg.candidates)
+        evaluator = world.evaluators[env_name]
+
+        def pick(alpha, avg_speaker, avg_listener):
+            picked = []
+            for key, res in results.items():
+                best = max(res["paths"],
+                           key=lambda p: cal_score(p, alpha, avg_speaker,
+                                                   avg_listener))
+                picked.append({
+                    "instr_id": key,
+                    "trajectory": [(vp, 0, 0) for vp in res["dijk_path"]]
+                    + best["trajectory"],
+                })
+            return picked
+
+        if cfg.param_search:
+            logs = []
+            for avg_speaker in (False, True):
+                for avg_listener in (False, True):
+                    for alpha in np.arange(0.0, 1.0001, 0.05):
+                        summary, _ = evaluator.score(
+                            pick(alpha, avg_speaker, avg_listener),
+                            allow_partial=True)
+                        logs.append((avg_speaker, avg_listener,
+                                     float(alpha),
+                                     summary["success_rate"]))
+            best = max(logs, key=lambda x: x[3])
+            print(f"{env_name}: best avg_speaker={best[0]} "
+                  f"avg_listener={best[1]} alpha={best[2]:.2f} "
+                  f"SR={best[3]:.4f}", flush=True)
+            out[env_name] = {"best": best, "logs": logs}
+        else:
+            picked = pick(cfg.alpha, True, True)
+            summary, _ = evaluator.score(picked, allow_partial=True)
+            print("Env name: %s, %s" % (env_name, ", ".join(
+                "%s: %.4f" % (m, v) for m, v in summary.items())),
+                flush=True)
+            out[env_name] = summary
+            if cfg.submit:
+                _write_submit(cfg, env_name, picked)
+    return out
+
+
 def train_speaker(cfg: Config, world: Optional[World] = None, device=None,
                   speaker: Optional[SpeakerAgent] = None) -> SpeakerAgent:
     """Speaker training (train.py:110-155, ``dasa_tpu/train/trainer.py:
@@ -318,9 +404,12 @@ def valid_speaker(cfg: Config, world: Optional[World] = None, device=None,
 
 def valid(cfg: Config, world: Optional[World] = None, device=None,
           agent: Optional[Seq2SeqAgent] = None) -> Dict[str, dict]:
-    """validlistener (train.py:396-421): argmax-evaluate every split but
-    train/aug and score it, after loading ``cfg.load`` when set.
-    ``agent`` reuses an agent built by :func:`make_agent`."""
+    """validlistener (train.py:396-421, ``dasa_tpu/train/trainer.py:
+    415``): argmax-evaluate every split but train/aug and score it, after
+    loading ``cfg.load`` when set; under ``cfg.submit`` (the host rollout
+    with the visited-candidate mask) write each split's results to
+    ``{log_dir}/{name}/submit_{split}.json``.  ``agent`` reuses an agent
+    built by :func:`make_agent`."""
     world = world or World(cfg)
     agent = agent or make_agent(cfg, world, device=device)
     if cfg.load is not None:
@@ -341,4 +430,15 @@ def valid(cfg: Config, world: Optional[World] = None, device=None,
                 "%s: %.4f" % (m, v) for m, v in summary.items())),
                 flush=True)
         out[env_name] = summary
+        if cfg.submit:
+            _write_submit(cfg, env_name, results)
     return out
+
+
+def _write_submit(cfg: Config, env_name: str, results) -> None:
+    """``{log_dir}/{name}/submit_{split}.json``: the results as the
+    leaderboard reads them."""
+    os.makedirs(os.path.join(cfg.log_dir, cfg.name), exist_ok=True)
+    path = os.path.join(cfg.log_dir, cfg.name, f"submit_{env_name}.json")
+    with open(path, "w") as f:
+        json.dump(results, f, sort_keys=True, indent=2)

@@ -242,6 +242,26 @@ def test_speaker_width_lstm_kernels_match_plain_on_card(cuda, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 2, 8])
+def test_rescoring_width_lstm_fwd_matches_plain_on_card(cuda, t):
+    """The speaker's rescoring of one search path: both directions of a
+    BiLSTM at B = 1, H = 256, T the path's moves, every token valid, with
+    and without the gate activations and under no_grad through
+    bilstm_scan_fn; the second direction alone from its view of the
+    stacked mask, 2 T bytes in (misaligned unless T is a multiple of 8:
+    the wrapper copies it)."""
+    xw, mask, h0, c0, wh = _fwd_inputs(10, t, 1, 256, 2)
+    mask = torch.ones_like(mask)
+    ref = bilstm_scan_ref(xw, mask, h0, c0, wh)
+    _check_fwd(bilstm_scan(xw, mask, h0, c0, wh, with_acts=True), ref)
+    _check_fwd(bilstm_scan(xw, mask, h0, c0, wh), ref[:2])
+    with torch.no_grad():
+        _check_fwd(bilstm_scan_fn(xw, mask, h0, c0, wh), ref[:2])
+    _check_fwd(lstm_scan(xw[1], mask[1], h0[1], c0[1], wh[1],
+                         with_acts=True), tuple(r[1] for r in ref))
+
+
+@pytest.mark.cuda
 def test_launch_plans_match_the_kernels_layouts_on_card(cuda):
     lib = _build.library()
     for t, b, h in ((16, 3, 64), (80, 20, 1024), (80, 32, 1024)):

@@ -221,6 +221,17 @@ def test_lstm_fwd_plans_fit_the_speaker_width(b, dirs, ctas, launches):
     assert plan.smem == _fwd_smem(35, b, 256, 8) <= _build.MAX_SMEM
 
 
+@pytest.mark.parametrize("t", [1, 2, 8, 35])
+@pytest.mark.parametrize("dirs", [1, 2])
+def test_lstm_fwd_plans_fit_the_rescoring_width(t, dirs):
+    """The speaker's rescoring of one search path: B = 1, H = 256, T the
+    path's moves (1 up to max_action): one launch of 32 CTAs of 8 units
+    a direction; the h row keeps its 32 rows."""
+    plan = fwd_plan(t, 1, 256, H100_SMS, dirs)
+    assert (plan.units, plan.ctas, plan.launches) == (8, 32 * dirs, 1)
+    assert plan.smem == _fwd_smem(t, 1, 256, 8) <= _build.MAX_SMEM
+
+
 @pytest.mark.parametrize("b", [20, 64])
 def test_lstm_bwd_plans_fit_the_speaker_width(b):
     """K2 at H = 256: 32 CTAs, 4H = 1024 columns in two chunks of 512,

@@ -10,9 +10,10 @@ instructions exactly, the teacher pass's loss and the loss of the sampled
 episode (replayed by the JAX package, whose sampler draws differently)
 at tests/test_device_env.py:142-145's tolerances, and the sum of both
 passes' gradients; the speaker's parameters get no gradient and stay
-where they were.  Then, within the port: stream + speaker is refused, and
-the README's ``--train auglistener --selfTrain`` command runs through the
-CLI.
+where they were.  Under stream the same accumulate falls back to the host
+act/replay pair, as the JAX agent does, and is held to the JAX fallback.
+Then the README's ``--train auglistener --selfTrain`` command runs
+through the CLI.
 """
 
 import jax
@@ -37,7 +38,7 @@ from dasa_tpu_torch.data.datasets import (
 )
 from dasa_tpu_torch.data.features import FeatureDB
 from dasa_tpu_torch.env import R2REnv
-from dasa_tpu_torch.testing import write_synthetic_connectivity
+from dasa_tpu_torch.testing import torch_threads, write_synthetic_connectivity
 from dasa_tpu_torch.utils import Tokenizer, build_vocab
 from dasa_tpu_torch.utils.jax_params import policy_state_dict_from_jax
 
@@ -58,6 +59,12 @@ NO_DROPOUT = dict(dropout=0.0, d_dropout_ratio=0.0, d_hidden_dropout_prob=0.0,
                   d_attn_dropout_prob=0.0)
 LOSS_RTOL = 1e-4
 GRAD_TOL = dict(rtol=2e-4, atol=1e-6)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -88,14 +95,14 @@ def port_pair(world, **kw):
     return agent, speaker
 
 
-def jax_pair(world):
+def jax_pair(world, **kw):
     conn, data, vocab = world
     tok = JaxTokenizer(vocab, encoding_length=L)
     items = expand_instructions(load_datasets(["aug"], data),
                                 Tokenizer(vocab, encoding_length=L),
                                 max_input=L)
     cfg = JaxConfig(**CFG, **NO_DROPOUT, use_pallas="always",
-                    connectivity_dir=conn)
+                    connectivity_dir=conn, **kw)
     feat = JaxFeatureDB.synthetic(SCANS, conn, dim=DIM)
     depth = JaxFeatureDB.synthetic(SCANS, conn, dim=DIM, salt=7)
     env = JaxEnv(feat, items, batch_size=B, connectivity_dir=conn,
@@ -205,10 +212,87 @@ def test_selftrain_accumulate_matches_jax(world):
     assert any(k.startswith("decoder.") for k in moved)
 
 
+def capture_replays(agent):
+    """Keep every replay that ``agent._run_replays`` runs."""
+    run, kept = agent._run_replays, []
+
+    def keep(replays):
+        kept.extend(list(replays))
+        return run(replays)
+
+    agent._run_replays = keep
+    return kept
+
+
 def test_stream_selftrain_raises(world):
-    agent, speaker = port_pair(world, rollout_mode="stream")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        agent.accumulate_gradient("sample", speaker=speaker)
+    """selfTrain under rollout_mode=stream raises nothing: as in the JAX
+    agent (seq2seq.py:1924-1932), the accumulate falls back to the host
+    act/replay pair, a teacher-ML rollout and a sampled A2C rollout, each
+    on a relabelled batch.  Against the JAX fallback: the relabelled
+    instructions and the teacher pass exactly; the JAX package replays
+    the episode the port sampled; the sum of both passes' gradients."""
+    jagent, jspeaker = jax_pair(world, rollout_mode="stream")
+    agent, speaker = port_pair(world, **NO_DROPOUT, use_pallas="always",
+                               rollout_mode="stream")
+    assert agent.use_stream_rollout() and jagent.use_stream_rollout()
+    agent.load_jax_params(jax.tree_util.tree_map(np.asarray, jagent.params))
+    speaker.load_jax_params(jax.tree_util.tree_map(np.asarray,
+                                                   jspeaker.params))
+    noise = noise_vector()
+    jagent._noise_fn = lambda: (lambda _rng: jnp.asarray(noise))
+    agent._noise_fn = lambda _gen: torch.from_numpy(noise)
+    jreplays, replays = capture_replays(jagent), capture_replays(agent)
+    originals = {it["instr_id"]: np.asarray(it["instr_encoding"]).copy()
+                 for it in agent.env.data}
+    speaker_before = {k: v.clone()
+                      for k, v in speaker.model.state_dict().items()}
+
+    jagent.accumulate_gradient("sample", speaker=jspeaker)
+    agent.zero_grad()
+    agent.accumulate_gradient("sample", speaker=speaker)
+    assert len(replays) == len(jreplays) == 2
+    for rep, jrep in zip(replays, jreplays):
+        np.testing.assert_array_equal(rep["instr"].numpy(),
+                                      np.asarray(jrep["args"][0]))
+    teacher = jreplays[0]["args"][3]
+    for key, val in replays[0]["stacked"].items():
+        np.testing.assert_array_equal(val, np.asarray(teacher[key]),
+                                      err_msg=key)
+    np.testing.assert_allclose(float(agent.losses[0]),
+                               float(jagent.losses[0]), rtol=LOSS_RTOL)
+    # the speaker's words replaced the batch's instructions
+    assert any(not np.array_equal(it["instr_encoding"],
+                                  originals[it["instr_id"]])
+               for it in agent.env.batch)
+
+    # the JAX teacher replay plus the JAX replay of the port's sample
+    tgrads, _ = jagent._grad_fn(True, jreplays[0]["n_steps"])(
+        jagent.params, jagent.tables,
+        *jagent._put_replay_args(jreplays[0]["args"]))
+    rep = replays[1]
+    rgrads, rlogs = jagent._grad_fn(True, rep["rewards"].shape[0])(
+        jagent.params, jagent.tables, jnp.asarray(rep["instr"].numpy(),
+                                                  jnp.int32),
+        jnp.asarray(rep["valid"].numpy()),
+        jnp.asarray(rep["seq_len"].numpy(), jnp.int32),
+        {k: jnp.asarray(v.astype(np.int32) if v.dtype == np.int64 else v)
+         for k, v in rep["stacked"].items()},
+        {k: jnp.asarray(v.astype(np.int32) if v.dtype == np.int64 else v)
+         for k, v in rep["final_sobs"].items()},
+        jnp.asarray(rep["rewards"]), jnp.asarray(rep["rl_masks"]),
+        jnp.asarray(rep["final_ended"]), jnp.zeros(B),
+        jax.random.PRNGKey(0), jnp.asarray(noise), jnp.float32(0.0),
+        jnp.float32(1.0), jnp.float32(0.01))
+    np.testing.assert_allclose(float(agent.losses[1]), float(rlogs["loss"]),
+                               rtol=LOSS_RTOL)
+    ref = policy_state_dict_from_jax(jax.tree_util.tree_map(
+        lambda a, b: np.asarray(a) + np.asarray(b), tgrads, rgrads))
+    for name, grad in port_grads(agent).items():
+        np.testing.assert_allclose(grad, ref[name], err_msg=name, **GRAD_TOL)
+    assert all(p.grad is None for p in speaker.model.parameters())
+    agent.optim_step()
+    for key, val in speaker.model.state_dict().items():
+        torch.testing.assert_close(val, speaker_before[key], atol=0, rtol=0)
 
 
 def test_cli_runs_the_readme_selftrain_command(world, tmp_path, capsys):

@@ -232,6 +232,44 @@ def test_score_instruction_matches_jax(world):
                                jsp.score_instruction(rec, insts), **TOL)
 
 
+def test_score_instruction_is_a_pure_forward(world, monkeypatch):
+    """score_instruction records no autograd graph: its logits do not
+    require grad, and the BiLSTMs (the kernel route under ``always``)
+    run without BiLstmScanFn, so no gate activations are written; the
+    scores equal those of the same forward with autograd recording."""
+    from dasa_tpu_torch.ops.lstm import BiLstmScanFn
+
+    _jsp, sp = make_pair(world, "always")
+    sp.env.reset()
+    rec, _lengths = sp.collect_teacher_path()
+    insts = sp.env._get_obs().instr
+    img, can = sp._gather_traj_feats(rec)
+    t = rec["feat_row"].shape[1]
+    # the rescoring's context mask: the path's moves (has_cand)
+    logits = sp._tf_logits(img, can, torch.as_tensor(insts).long(),
+                           sp._ctx_mask(t, rec["has_cand"].sum(1)))[:, :-1]
+    assert logits.requires_grad  # the recording forward, for reference
+    tgt = torch.as_tensor(insts).long()[:, 1:]
+    ce = -torch.log_softmax(logits, -1).gather(-1, tgt[..., None])[..., 0]
+    want = torch.where(tgt != PAD_IDX, ce, 0.0).detach().numpy()
+
+    seen = []
+    tf_logits = sp._tf_logits
+
+    def spy(*args, **kwargs):
+        seen.append(tf_logits(*args, **kwargs))
+        return seen[-1]
+
+    def refuse(*args):
+        raise AssertionError("BiLstmScanFn applied in a pure forward")
+
+    monkeypatch.setattr(sp, "_tf_logits", spy)
+    monkeypatch.setattr(BiLstmScanFn, "apply", refuse)
+    got = sp.score_instruction(rec, insts)
+    assert len(seen) == 1 and not seen[0].requires_grad
+    np.testing.assert_array_equal(got, want)
+
+
 def test_relabel_batch_matches_jax(world):
     """The greedy decode under the shared env-drop mask, PAD / EOS
     stripped, re-encoded to max_input; copies swapped into the batch."""

@@ -40,7 +40,7 @@ from dasa_tpu_torch.data.datasets import (
 )
 from dasa_tpu_torch.data.features import FeatureDB
 from dasa_tpu_torch.env import R2REnv
-from dasa_tpu_torch.testing import write_synthetic_connectivity
+from dasa_tpu_torch.testing import torch_threads, write_synthetic_connectivity
 from dasa_tpu_torch.utils import Tokenizer, build_vocab
 from dasa_tpu_torch.utils.jax_params import policy_state_dict_from_jax
 
@@ -65,6 +65,12 @@ GRAD_TOL = dict(rtol=2e-4, atol=1e-6)
 # clamps admissions (windows 3 and 4)
 WINDOWS = 5
 LOSS_KEYS = ("ml_loss", "rl_loss", "critic_loss", "entropy", "total")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(scope="module")

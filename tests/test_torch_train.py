@@ -36,7 +36,7 @@ from dasa_tpu_torch.data.datasets import (
 )
 from dasa_tpu_torch.data.features import FeatureDB
 from dasa_tpu_torch.env import R2REnv
-from dasa_tpu_torch.testing import write_synthetic_connectivity
+from dasa_tpu_torch.testing import torch_threads, write_synthetic_connectivity
 from dasa_tpu_torch.train.optim import CLIP_NORM, ComponentOptimizer
 from dasa_tpu_torch.utils import Tokenizer, build_vocab
 from dasa_tpu_torch.utils.jax_params import policy_state_dict_from_jax
@@ -57,6 +57,12 @@ NO_DROPOUT = dict(dropout=0.0, d_dropout_ratio=0.0, d_hidden_dropout_prob=0.0,
                   d_attn_dropout_prob=0.0)
 LOSS_RTOL = 1e-4
 GRAD_TOL = dict(rtol=2e-4, atol=1e-6)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -337,6 +343,17 @@ def test_same_seed_same_gradients(world):
     dict(device_rollout="never"), dict(pretrain_model_name="bert.pt"),
     dict(fuse_passes="auto"), dict(remat="percept")])
 def test_unported_training_paths_raise(world, option):
+    """The training options the port leaves out raise, naming ROADMAP.md;
+    ``device_rollout="never"`` runs the host act/replay rollout instead:
+    a teacher-ML and a sampled pass with finite losses and gradients."""
+    if option.get("device_rollout") == "never":
+        agent = port_agent(world, **option)
+        agent.zero_grad()
+        agent.accumulate_gradient("sample")
+        assert len(agent.losses) == 2
+        assert np.isfinite([float(x) for x in agent.losses]).all()
+        assert any(p.grad is not None for p in agent.policy.parameters())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_agent(world, **option).accumulate_gradient("sample")
 
@@ -361,5 +378,8 @@ def test_cli_trains_and_validates_on_cpu(world, tmp_path, capsys):
     main(args + ["--train", "validlistener", "--load", str(ckpt)])
     out = capsys.readouterr().out
     assert "Loaded listener at iter 2" in out and "val_unseen" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(args + ["--train", "validlistener", "--beam"])
+    # Dijkstra search with an untrained speaker's rescoring
+    main(args + ["--train", "validlistener", "--beam", "--load", str(ckpt)])
+    out = capsys.readouterr().out
+    assert "Loaded listener at iter 2" in out
+    assert "Env name: val_seen" in out and "Env name: val_unseen" in out

@@ -8,6 +8,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --phases build,kernels,stream,stream-eval
     python3 chip_smoke.py --phases build,kernels,speaker,speaker-compare,selftrain
     python3 chip_smoke.py --phases build,kernels,host,search
+    python3 chip_smoke.py --phases build,pretrain,pretrain-chain
 
 Phases:
   1. build — print the card's name and power limit, build the CUDA
@@ -109,16 +110,40 @@ Phases:
      row; prints seconds a split and expansions a batch.  Then the first
      expansion's log-probabilities under always and never (phase 4's
      limit).
+  14. pretrain — ``--train pretrain``'s ``run_pretrain`` at the headline
+     BERT (la 9, vl 3, hidden 768, max_input 80) on the synthetic world,
+     batch 20, dropout on: 10 AdamW steps (warm_steps 2, so steps 2-10
+     move the weights), ``checkpoint-10`` saved.  Fails unless every loss
+     is finite, the optimizer took 10 steps and the weights moved; prints
+     the seconds a step (median after the first), samples/s, the peak
+     memory, the loss at steps 1 and 10 and one ``evaluate()`` (loss,
+     mlm_acc, act_acc) on the val_seen split's records; then one batch
+     through the bf16 model and an f32 copy of the same weights: the
+     loss, the masked positions' MLM logits and the action logits, each
+     within its stated limit, and a control that takes the loss from
+     bf16 logits in bf16.  The pretraining path launches none of K1-K4.
+  15. pretrain-chain — the launch counters set to 0: (a) the headline
+     listener built with ``pretrain_model_name`` = phase 14's snapshot
+     directory: every ``encoder.bert.*`` tensor equals the Pretrainer's
+     exactly (the word table's leading rows; the rest and every other
+     tensor equal an un-grafted listener's of the same seed), then 2
+     episodic ``train()`` iterations and one ``valid()`` under ``always``;
+     (b) an HF-style ``pytorch_model.bin`` of the same weights
+     (``DicAddActionPreTrain`` keys, the word table at the BERT vocab's
+     30522 rows) grafted the same way, exactly; (c) the listener
+     checkpoint of (a) loaded back into a fresh listener, exactly; the
+     counters read back.  Fails unless K1-K4 launched.
   profile (only when named in --phases) — one eval batch, one training
      iteration, one stream window, one selfTrain iteration, one search
-     batch and one host-rollout iteration at headline width under
-     torch.profiler, each after a warm-up: device time by kernel, the
-     device's busy share of the wall.
+     batch, one host-rollout iteration and one pretraining step at
+     headline width under torch.profiler, each after a warm-up: device
+     time by kernel, the device's busy share of the wall.
 Then one ``{"kernels": [...]}`` JSON line (``launches``: the count during
 ``train()``; ``launches_eval``: during ``valid()``; ``launches_stream``:
 during ``train()`` under stream; ``launches_speaker``: during phase 9;
 ``launches_selftrain``: during phase 11; ``launches_host``: during phase
-12; ``launches_search``: during phase 13's searches; ``ratio``: ``ms`` /
+12; ``launches_search``: during phase 13's searches;
+``launches_pretrain_chain``: during phase 15; ``ratio``: ``ms`` /
 ``library_ms``; ``device_ms`` / ``library_device_ms``: the back-to-back
 device times), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -183,6 +208,17 @@ HOST_SELFTRAIN_STEPS = 2
 TRAINED = ("encoder.lstm.", "decoder.", "critic.", "adain.")
 NO_DROPOUT = dict(dropout=0.0, featdropout=0.0, d_dropout_ratio=0.0,
                   d_hidden_dropout_prob=0.0, d_attn_dropout_prob=0.0)
+# pretraining: steps of run_pretrain, its warm-up (steps 2..10 move the
+# weights), and the bf16 model's limits against its f32 copy: the loss
+# (relative), the logits (against the f32 logits' largest magnitude) and
+# their argmax agreement (a share of the rows)
+PRETRAIN_STEPS = 10
+PRETRAIN_WARM = 2
+PRETRAIN_BF16_RTOL = 2e-3
+PRETRAIN_LOGIT_RTOL = 5e-2
+PRETRAIN_ARGMAX_AGREE = 0.95
+CHAIN_ITERS = 2
+BERT_VOCAB = 30522
 # the speaker's rescoring of one search path at a time: K1 at one row over
 # the path's moves (1 up to max_action 35)
 RSC_T = (1, 2, 8, 35)
@@ -1634,6 +1670,228 @@ def phase_search(cfg, world, seed: int, root: str):
     return launches
 
 
+def phase_pretrain(cfg, world, seed: int, root: str):
+    """run_pretrain at the headline BERT width; returns the Pretrainer and
+    its snapshot directory."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.pretrain import (
+        PretrainBatcher,
+        generate_pretrain_records,
+    )
+    from dasa_tpu_torch.pretrain.trainer import Pretrainer, run_pretrain
+
+    cfg = cfg.replace(train="pretrain", name="pretrain",
+                      iters=PRETRAIN_STEPS, warm_steps=PRETRAIN_WARM,
+                      log_every=PRETRAIN_STEPS, val_every=10 ** 9,
+                      save_every=10 ** 9, snap_dir=os.path.join(root, "snap"))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    pt = run_pretrain(cfg, world)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.kernel_launches()
+    hist = pt.history
+    losses = [h["loss"] for h in hist]
+    if len(hist) != PRETRAIN_STEPS or pt.optimizer.count != PRETRAIN_STEPS:
+        fail(f"pretrain: {len(hist)} steps, {pt.optimizer.count} optimizer "
+             f"steps, expected {PRETRAIN_STEPS}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"pretrain: non-finite loss in {losses}")
+    snap = os.path.join(cfg.snap_dir, cfg.name, "pretrain")
+    if not os.path.isfile(os.path.join(snap, f"checkpoint-{PRETRAIN_STEPS}")):
+        fail(f"pretrain: no checkpoint-{PRETRAIN_STEPS} in {snap}")
+    tok = world.tok
+    init = Pretrainer(cfg, world.feature_db, len(tok)).model.state_dict()
+    moved = sum(not torch.equal(v, init[k])
+                for k, v in pt.model.state_dict().items())
+    del init
+    if moved < len(pt.model.state_dict()) // 2:
+        fail(f"pretrain: only {moved} tensors moved")
+    step_s = [h["seconds"] for h in hist]
+    med = statistics.median(step_s[1:])
+    print(f"  launches during run_pretrain(): {launches} (the pretraining "
+          "path has no TPU kernel)", flush=True)
+    print(f"  pretrain: step s {[round(x, 4) for x in step_s]}, median "
+          f"after the first {med:.4f} s, {cfg.batch_size / med:.2f} "
+          f"samples/s; loss step 1 {losses[0]:.4f}, step "
+          f"{PRETRAIN_STEPS} {losses[-1]:.4f}; {moved} tensors moved; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB; card {card_name()}",
+          flush=True)
+    mask = tok.word_to_index["<MASK>"]
+    val = PretrainBatcher(
+        generate_pretrain_records(world.envs["val_seen"],
+                                  max_steps=cfg.max_action),
+        cfg.batch_size, len(tok), mask, seed=seed + 1)
+    out = pt.evaluate(val, max_batches=10)
+    if not all(math.isfinite(v) for v in out.values()):
+        fail(f"pretrain: evaluate() {out}")
+    print(f"  evaluate() on val_seen: loss {out['loss']:.4f} mlm_acc "
+          f"{out['mlm_acc']:.4f} act_acc {out['act_acc']:.4f}", flush=True)
+    check_bf16_against_f32(cfg, world, pt, next(val.epoch()))
+    return pt, snap
+
+
+def check_bf16_against_f32(cfg, world, pt, batch) -> None:
+    """One batch through the bf16 Pretrainer and an f32 copy of its
+    weights: the loss, and the MLM logits at the masked positions and the
+    action logits (their error against the f32 logits' largest magnitude,
+    and the argmax agreement), each within its limit, and the bf16
+    model's logits f32.  Prints, beside
+    them, a control that rounds the bf16 model's logits to bf16 and takes
+    the loss's log-softmaxes in bf16, the precision the f32 logits keep."""
+    import torch
+
+    from dasa_tpu_torch.pretrain.model import _masked_ce
+    from dasa_tpu_torch.pretrain.trainer import Pretrainer
+
+    pt32 = Pretrainer(cfg.replace(compute_dtype="float32"), world.feature_db,
+                      len(world.tok))
+    pt32.model.load_state_dict(pt.model.state_dict())
+    l16, m16, a16 = pt.eval_outputs(batch)
+    l32, m32, a32 = pt32.eval_outputs(batch)
+    del pt32
+    if not m16.dtype == a16.dtype == torch.float32:
+        fail(f"pretrain: the bf16 model's logits are {m16.dtype} / "
+             f"{a16.dtype}, not float32")
+    labels, actions = (torch.as_tensor(np.asarray(batch[k])).to(m16.device)
+                       for k in ("labels", "action"))
+    masked = labels >= 0
+    control = (_masked_ce(m16.bfloat16(), labels)
+               + _masked_ce(a16.bfloat16(), actions)).item()
+    l16, l32 = l16.item(), l32.item()
+    gap = abs(l16 - l32) / abs(l32)
+    print(f"  one batch's loss bf16 {l16:.6f} vs f32 {l32:.6f}: "
+          f"{gap:.3e} of the f32 loss (limit {PRETRAIN_BF16_RTOL:.0e}); "
+          f"control (bf16 log-softmax of bf16 logits) "
+          f"{abs(control - l32) / abs(l32):.3e}", flush=True)
+    if not gap <= PRETRAIN_BF16_RTOL:
+        fail(f"pretrain: bf16 loss {l16} vs f32 {l32}")
+    for name, got, ref in (("MLM", m16[masked], m32[masked]),
+                           ("action", a16, a32)):
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        print(f"  {name} logits ({ref.shape[0]} rows): max error "
+              f"{err:.3e} of the f32 logits' largest magnitude (limit "
+              f"{PRETRAIN_LOGIT_RTOL:.0e}), argmax agreement {agree:.4f} "
+              f"(limit {PRETRAIN_ARGMAX_AGREE})", flush=True)
+        if not (err <= PRETRAIN_LOGIT_RTOL
+                and agree >= PRETRAIN_ARGMAX_AGREE):
+            fail(f"pretrain: bf16 {name} logits against f32: error {err}, "
+                 f"argmax agreement {agree}")
+
+
+def check_graft(label, got, bert, plain):
+    """Every ``encoder.bert.*`` tensor of ``got`` equals ``bert`` (a
+    DicModel state dict; a shorter word table its leading rows), every
+    other tensor the un-grafted listener's ``plain``."""
+    import torch
+
+    n_bert = 0
+    for k, v in plain.items():
+        g = got[k]
+        if not k.startswith("encoder.bert."):
+            same = torch.equal(g, v)
+        else:
+            src = bert[k[len("encoder.bert."):]].to(g.device)
+            rows = src.shape[0] if src.dim() == 2 else None
+            same = (torch.equal(g[:rows], src)
+                    and torch.equal(g[rows:], v[rows:])
+                    if rows is not None and rows < g.shape[0]
+                    else torch.equal(g, src))
+            n_bert += 1
+        if not same:
+            fail(f"{label}: {k} is not what the graft should give")
+    print(f"  {label}: {n_bert} encoder.bert tensors equal the source "
+          f"exactly, {len(plain) - n_bert} others kept their init",
+          flush=True)
+
+
+def phase_pretrain_chain(cfg, world, seed: int, root: str, pt, snap: str):
+    """The pretrained listener: (a) grafted from phase 14's snapshot,
+    trained and validated; (b) grafted from an HF-style .bin; (c) its
+    checkpoint loaded back."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.train.trainer import make_agent, train, valid
+
+    cfg = cfg.replace(iters=CHAIN_ITERS, log_every=1, val_every=10 ** 9,
+                      save_every=10 ** 9, name="chain",
+                      snap_dir=os.path.join(root, "snap"),
+                      log_dir=os.path.join(root, "log"))
+    bert = pt.export_bert_params()
+    plain = make_agent(cfg, world, rng_seed=seed)
+    init = plain.policy.state_dict()
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    agent = make_agent(cfg.replace(pretrain_model_name=snap), world,
+                       rng_seed=seed)
+    check_graft("(a) graft from the Pretrainer snapshot",
+                agent.policy.state_dict(), bert, init)
+    start = time.perf_counter()
+    train(cfg, world, agent=agent)
+    out = valid(cfg, world, agent=agent)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.kernel_launches()
+    losses = [float(x) for x in agent.logs["loss"]]
+    if agent.iter_count != CHAIN_ITERS or not all(
+            math.isfinite(x) for x in losses):
+        fail(f"pretrain-chain: {agent.iter_count} iterations, losses "
+             f"{losses}")
+    for split, summary in out.items():
+        check_summary(split, summary)
+    print(f"  (a) {CHAIN_ITERS} train() iterations and valid(): "
+          f"{seconds:.2f} s; losses {losses}; SR "
+          f"{ {k: round(v['success_rate'], 4) for k, v in out.items()} }",
+          flush=True)
+    print(f"  launches during the chain: {launches}", flush=True)
+    for name in PATH_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} never launched in the pretrained chain")
+    ckpt = os.path.join(root, "chain_listener")
+    agent.save(CHAIN_ITERS, ckpt)
+    trained = {k: v.detach().clone()
+               for k, v in agent.policy.state_dict().items()}
+    del agent
+    # (b) the reference's on-disk form: DicAddActionPreTrain keys, the
+    # word table at the BERT vocab's rows (the tail from the listener)
+    word = "embeddings.word_embeddings.weight"
+    full = dict(bert)
+    table = init[f"encoder.bert.{word}"].clone()
+    table[:bert[word].shape[0]] = bert[word]
+    full[word] = table
+    state = {f"bert.{k}": v.cpu() for k, v in full.items()}
+    for k, v in pt.model.state_dict().items():
+        if not k.startswith("bert."):
+            state[k] = v.cpu()
+    state["mlmhead.predictions.decoder.weight"] = state[f"bert.{word}"]
+    if table.shape[0] != BERT_VOCAB:
+        fail(f"listener word table has {table.shape[0]} rows")
+    hf = os.path.join(root, "hf")
+    os.makedirs(hf)
+    torch.save(state, os.path.join(hf, "pytorch_model.bin"))
+    del state
+    agent = make_agent(cfg.replace(pretrain_model_name=hf), world,
+                       rng_seed=seed)
+    check_graft("(b) graft from an HF pytorch_model.bin",
+                agent.policy.state_dict(), full, init)
+    del agent
+    # (c) the trained listener's checkpoint back into a fresh listener
+    plain.load(ckpt)
+    got = plain.policy.state_dict()
+    bad = [k for k, v in trained.items() if not torch.equal(got[k], v)]
+    if bad:
+        fail(f"pretrain-chain: checkpoint round trip differs at {bad[:5]}")
+    print(f"  (c) the listener checkpoint loads back equal ({len(trained)} "
+          "tensors)", flush=True)
+    return launches
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1673,8 +1931,8 @@ def profile_window(label: str, fn, steps_of):
 
 def phase_profile(cfg, cfg_train, world, seed: int):
     """Where one eval batch's, one training iteration's, one stream
-    window's, one selfTrain iteration's, one search batch's and one
-    host-rollout iteration's time goes."""
+    window's, one selfTrain iteration's, one search batch's, one
+    host-rollout iteration's and one pretraining step's time goes."""
     from dasa_tpu_torch.train.trainer import World, make_agent, make_speaker
 
     agent = make_agent(cfg, world, rng_seed=seed)
@@ -1751,6 +2009,30 @@ def phase_profile(cfg, cfg_train, world, seed: int):
     profile_window("host-rollout iteration (teacher + sample act/replay + "
                    "optim)", lambda: agent.train(1, feedback="sample"),
                    agent.env_steps_total)
+    del agent
+    from dasa_tpu_torch.pretrain import (
+        PretrainBatcher,
+        generate_pretrain_records,
+    )
+    from dasa_tpu_torch.pretrain.trainer import Pretrainer
+
+    tok = world.tok
+    if "<MASK>" not in tok.word_to_index:
+        tok.add_word("<MASK>")
+    batch = next(PretrainBatcher(
+        generate_pretrain_records(world.envs["train"],
+                                  max_steps=cfg.max_action),
+        cfg.batch_size, len(tok), tok.word_to_index["<MASK>"],
+        seed=seed).epoch())
+    pt = Pretrainer(cfg.replace(iters=PRETRAIN_STEPS,
+                                warm_steps=PRETRAIN_WARM),
+                    world.feature_db, len(tok))
+    pt.train_step(batch)  # warm-up
+    profile_window("pretrain step (batch 20, forward, backward, AdamW)",
+                   lambda: pt.train_step(batch),
+                   lambda: pt.step_count * cfg.batch_size)
+    print("    (the count above is of samples, not agent-steps)",
+          flush=True)
 
 
 def main() -> None:
@@ -1758,7 +2040,7 @@ def main() -> None:
     ap.add_argument("--phases",
                     default="build,kernels,main,compare,train,train-compare,"
                             "stream,stream-eval,speaker,speaker-compare,"
-                            "selftrain,host,search")
+                            "selftrain,host,search,pretrain,pretrain-chain")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1786,10 +2068,11 @@ def main() -> None:
         rows = phase_kernels(args.seed)
     launches_eval, launches, launches_stream = {}, {}, {}
     launches_speaker, launches_selftrain = {}, {}
-    launches_host, launches_search = {}, {}
+    launches_host, launches_search, launches_chain = {}, {}, {}
     if phases & {"main", "compare", "train", "train-compare", "stream",
                  "stream-eval", "profile", "speaker", "speaker-compare",
-                 "selftrain", "host", "search"}:
+                 "selftrain", "host", "search", "pretrain",
+                 "pretrain-chain"}:
         with tempfile.TemporaryDirectory() as root:
             cfg, world = headline_world(root, args.seed, use_pallas="always")
             cfg_train = cfg.replace(**TRAIN)
@@ -1848,6 +2131,16 @@ def main() -> None:
                 print("== phase 13 (search): beam_valid() at headline width "
                       "with speaker rescoring", flush=True)
                 launches_search = phase_search(cfg, world, args.seed, root)
+            if phases & {"pretrain", "pretrain-chain"}:
+                print("== phase 14 (pretrain): run_pretrain at the headline "
+                      "BERT width", flush=True)
+                pt, snap = phase_pretrain(cfg, world, args.seed, root)
+            if "pretrain-chain" in phases:
+                print("== phase 15 (pretrain-chain): the headline listener "
+                      "from the pretraining snapshot and from an HF .bin",
+                      flush=True)
+                launches_chain = phase_pretrain_chain(
+                    cfg_train, world, args.seed, root, pt, snap)
             if "profile" in phases:
                 print("== profile: one eval batch, one training iteration, "
                       "one stream window, one selfTrain iteration, one "
@@ -1855,7 +2148,7 @@ def main() -> None:
                 phase_profile(cfg, cfg_train, world, args.seed)
     if rows:
         print("== phase 2 rows with the launches of phases 3, 5, 7, 9, 11, "
-              "12 and 13", flush=True)
+              "12, 13 and 15", flush=True)
     for r in rows:
         base = r["name"].split("[")[0]
         per_token = ("" if "us_per_token" not in r
@@ -1867,8 +2160,10 @@ def main() -> None:
               f"{launches_stream.get(base, 0)} in train() under stream, "
               f"{launches_speaker.get(base, 0)} in the speaker phase, "
               f"{launches_selftrain.get(base, 0)} in selfTrain train(), "
-              f"{launches_host.get(base, 0)} in the host phase and "
-              f"{launches_search.get(base, 0)} in the searches{per_token}",
+              f"{launches_host.get(base, 0)} in the host phase, "
+              f"{launches_search.get(base, 0)} in the searches and "
+              f"{launches_chain.get(base, 0)} in the pretrained chain"
+              f"{per_token}",
               flush=True)
     out = []
     for r in rows:
@@ -1885,6 +2180,7 @@ def main() -> None:
                     "launches_selftrain": launches_selftrain.get(base, 0),
                     "launches_host": launches_host.get(base, 0),
                     "launches_search": launches_search.get(base, 0),
+                    "launches_pretrain_chain": launches_chain.get(base, 0),
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -77,10 +77,16 @@ from dasa_tpu_torch.models.policy import (
 )
 from dasa_tpu_torch.sim.engine import micro_trajectory
 from dasa_tpu_torch.train.optim import COMPONENTS, ComponentOptimizer
+from dasa_tpu_torch.utils import flax_msgpack
 from dasa_tpu_torch.utils.angles import all_point_angle_feature
 from dasa_tpu_torch.utils.device import resolve_device
+from dasa_tpu_torch.utils.jax_params import policy_state_dict_from_jax
+from dasa_tpu_torch.utils.pretrain_load import load_pretrained_encoder
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the reference's component names where they differ from the port's
+# (agent_dg.py:1466-1487)
+REFERENCE_COMPONENTS = {"adaIn": "adain"}
 # the observation fields a replay re-reads (seq2seq.py:682-684)
 REC_KEYS = ("feat_row", "view_index", "heading", "elevation",
             "cand_point_id", "cand_heading", "cand_elevation", "cand_n",
@@ -193,14 +199,6 @@ class Seq2SeqAgent(StreamMixin):
                  feature_db: FeatureDB,
                  depth_db: Optional[FeatureDB] = None, rng_seed: int = 0,
                  device=None):
-        if cfg.pretrain_model_name:
-            # the JAX agent loads its encoder from this checkpoint
-            # (seq2seq.py:174-190); training from random weights instead
-            # would pass unnoticed
-            raise NotImplementedError(
-                "pretrain_model_name: loading the encoder from a "
-                "pretraining checkpoint comes with utils/pretrain_load.py "
-                "(ROADMAP.md section 1, item 6)")
         self.cfg = cfg
         self.env = env
         self.device = resolve_device(device)
@@ -211,6 +209,17 @@ class Seq2SeqAgent(StreamMixin):
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed + rng_seed)
             policy = DasaPolicy(cfg, compute_dtype=dtype)
+        if cfg.pretrain_model_name:
+            # the encoder from the pretraining checkpoint, before the
+            # optimizer sees the parameters (the reference's
+            # `encoder.bert = premodel.bert`, seq2seq.py:174-190)
+            state, missed = load_pretrained_encoder(policy.state_dict(),
+                                                    cfg.pretrain_model_name)
+            policy.load_state_dict(state)
+            note = (f"; {len(missed)} unmatched leaves, e.g. {missed[:3]}"
+                    if missed else "")
+            print(f"Initialized encoder from pretrain checkpoint "
+                  f"{cfg.pretrain_model_name}{note}", flush=True)
         # eval mode: dropout is explicit (a generator per pass), never
         # nn.Module.training
         self.policy = policy.to(self.device).eval()
@@ -270,8 +279,6 @@ class Seq2SeqAgent(StreamMixin):
     def load_jax_params(self, params) -> None:
         """Load the JAX package's param tree (nested dicts of arrays, with
         or without the top-level ``params`` key)."""
-        from dasa_tpu_torch.utils.jax_params import policy_state_dict_from_jax
-
         state = policy_state_dict_from_jax(params)
         self.policy.load_state_dict(
             {k: torch.as_tensor(np.asarray(v, np.float32))
@@ -1096,12 +1103,34 @@ class Seq2SeqAgent(StreamMixin):
     def load(self, path: str) -> int:
         """Mismatch-tolerant load (seq2seq.py:2209, agent_dg.py:1489-1510):
         each parameter whose name and shape match the checkpoint is
-        restored; the others keep their values, with a NOTICE.  With
-        ``load_optim`` the optimizer states come back too.  Returns the
-        checkpoint's epoch."""
-        blob = torch.load(path, map_location=self.device)
-        saved = {f"{name}.{key}": val for name, entry in blob.items()
-                 for key, val in entry["state_dict"].items()}
+        restored; the others keep their values, with a NOTICE.  Reads the
+        port's own files and the reference's r2r_src listener files (torch
+        files of per-component dicts; the reference names the AdaIN
+        component ``adaIn``), and the JAX package's: its msgpack
+        ``{"epoch", "params", "opt_state"}`` and the round-1 pickle of flax
+        bytes.  With ``load_optim`` the optimizer states of a torch file
+        come back too; a JAX file's optax state has no torch counterpart
+        and is not restored (a NOTICE says so).  Returns the checkpoint's
+        epoch."""
+        fmt = flax_msgpack.file_format(path)
+        if fmt == "torch":
+            blob = torch.load(path, map_location=self.device)
+            blob = {REFERENCE_COMPONENTS.get(name, name): entry
+                    for name, entry in blob.items()}
+            saved = {f"{name}.{key}": val for name, entry in blob.items()
+                     for key, val in entry["state_dict"].items()}
+            epoch = next(iter(blob.values()))["epoch"]
+        else:
+            if fmt == "msgpack":
+                with open(path, "rb") as f:
+                    blob = flax_msgpack.msgpack_restore(f.read())
+                params = blob["params"]
+            else:  # the round-1 pickle: {"epoch", "params": flax bytes, ..}
+                blob = flax_msgpack.load_plain_pickle(path)
+                params = flax_msgpack.msgpack_restore(blob["params"])
+            saved = {k: torch.as_tensor(v) for k, v in
+                     policy_state_dict_from_jax(params).items()}
+            epoch = blob["epoch"]
         merged, skipped = {}, []
         for key, val in self.policy.state_dict().items():
             cand = saved.get(key)
@@ -1116,7 +1145,10 @@ class Seq2SeqAgent(StreamMixin):
                   f"(kept init for {len(skipped)}: {skipped[:5]}...; "
                   f"ignored {len(unused)} checkpoint-only keys)", flush=True)
         self.policy.load_state_dict(merged)
-        if self.cfg.load_optim:
+        if self.cfg.load_optim and fmt != "torch":
+            print("NOTICE: optimizer state not restored (a JAX checkpoint's "
+                  "optax state has no torch counterpart)", flush=True)
+        elif self.cfg.load_optim:
             try:
                 for name, opt in self.optimizer.optimizers.items():
                     opt.load_state_dict(blob[name]["optimizer"])
@@ -1124,4 +1156,4 @@ class Seq2SeqAgent(StreamMixin):
             except (KeyError, ValueError) as e:  # component drift: fresh
                 print(f"NOTICE: optimizer state not restored ({e})",
                       flush=True)
-        return int(next(iter(blob.values()))["epoch"])
+        return int(epoch)

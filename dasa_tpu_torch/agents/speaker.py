@@ -36,6 +36,7 @@ from dasa_tpu_torch.train.optim import (
     fill_missing_grads_,
     make_optimizer,
 )
+from dasa_tpu_torch.utils import flax_msgpack
 from dasa_tpu_torch.utils.angles import all_point_angle_feature
 from dasa_tpu_torch.utils.device import resolve_device
 from dasa_tpu_torch.utils.vocab import PAD_IDX, Tokenizer
@@ -434,7 +435,21 @@ class SpeakerAgent:
 
     def load(self, path: str) -> int:
         """Restore a :meth:`save` checkpoint (the optimizer's state too
-        under ``load_optim``); returns its epoch."""
+        under ``load_optim``), or the JAX package's speaker file (a pickle
+        of ``{"epoch", "params": flax bytes, "opt_state"}``, whose optax
+        state is not restored: a NOTICE says so); returns its epoch."""
+        fmt = flax_msgpack.file_format(path)
+        if fmt == "pickle":
+            blob = flax_msgpack.load_plain_pickle(path)
+            self.load_jax_params(flax_msgpack.msgpack_restore(blob["params"]))
+            if self.cfg.load_optim:
+                print("NOTICE: optimizer state not restored (a JAX "
+                      "checkpoint's optax state has no torch counterpart)",
+                      flush=True)
+            return int(blob["epoch"])
+        if fmt != "torch":
+            raise ValueError(f"{path!r}: a {fmt} file is no speaker "
+                             "checkpoint")
         blob = torch.load(path, map_location=self.device)
         self.model.load_state_dict(blob["model"])
         if self.cfg.load_optim:

@@ -13,13 +13,19 @@
                                                         # Shortest
     python -m dasa_tpu_torch.cli --train speaker ...
     python -m dasa_tpu_torch.cli --train validspeaker [--load <ckpt>]
+    python -m dasa_tpu_torch.cli --train pretrain ...   # MLM + next action
+    python -m dasa_tpu_torch.cli --train listener
+        --pretrain_model_name <dir or checkpoint> ...   # pretrained encoder
 
 The flags are ``train.py``'s (the reference's spellings and snake_case),
 parsed by the port's copy of the config.  ``--device`` picks the device
 (CUDA by default; ``--device cpu`` for a small run without a card).
 ``--search_type state_factored`` picks the speaker-follower search for
-``--beam`` / ``beamvalid``.  ``pretrain`` and the NDH modes come with
-later slices (ROADMAP.md).
+``--beam`` / ``beamvalid``.  ``--pretrain_model_name`` takes an HF
+directory or ``pytorch_model.bin`` (the DicAdd / DicPM and Vic families)
+or a Pretrainer ``checkpoint-N`` of the port or of the JAX package
+(``utils/pretrain_load.py``).  The NDH modes come with a later slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -63,6 +69,10 @@ def main(argv=None) -> None:
         trainer.train_speaker(cfg, device=known.device)
     elif cfg.train == "validspeaker":
         trainer.valid_speaker(cfg, device=known.device)
+    elif cfg.train == "pretrain":
+        from dasa_tpu_torch.pretrain.trainer import run_pretrain
+
+        run_pretrain(cfg, device=known.device)
     else:
         raise NotImplementedError(
             f"--train {cfg.train} is not ported yet (ROADMAP.md)")

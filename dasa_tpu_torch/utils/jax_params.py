@@ -5,7 +5,10 @@
 np.asarray, params)`` gives it; no JAX import is needed here) and returns
 the port's ``state_dict``, whose names are the reference r2r_src torch
 names; ``speaker_state_dict_from_jax`` does the same for the JAX
-``SpeakerModel``.  Conventions, the inverse of
+``SpeakerModel`` and ``pretrain_state_dict_from_jax`` for the JAX
+``DicAddActionPreTrain`` / ``DicPMActionPreTrain``.  Leaves may be numpy
+arrays or, for the ``bfloat16`` arrays of ``utils/flax_msgpack.py``,
+torch tensors.  Conventions, the inverse of
 ``dasa_tpu/utils/torch_import.py``:
 
 - a flax ``kernel`` (in, out) is a torch Linear ``weight`` (out, in),
@@ -17,7 +20,12 @@ names; ``speaker_state_dict_from_jax`` does the same for the JAX
 - in the policy, ``lalayer_3`` is ``lalayer.3``; the decoder's
   ``embedding`` is the reference Sequential's ``embedding.0``; the
   critic's ``Dense_0`` and ``Dense_1`` are ``state2value.0`` and
-  ``state2value.3``.  The speaker's names carry over unchanged.
+  ``state2value.3``.  The speaker's names carry over unchanged;
+- in the pretraining models, the MLM head's ``transform`` and
+  ``LayerNorm`` are HF ``BertOnlyMLMHead``'s
+  ``predictions.transform.dense`` / ``.LayerNorm`` and its ``bias``
+  ``predictions.bias``; ``next_action/Dense_0`` is ``next_action``.
+  :func:`jax_path_of` maps a port name back to its JAX path.
 
 Under ``use_pallas="always"`` the JAX kernel paths store their params
 under flat keys (``"a_fc/kernel"``, ``"linear_in/kernel"``,
@@ -32,6 +40,8 @@ import re
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
+import torch
+from torch import nn
 
 Path = Tuple[str, ...]
 
@@ -39,6 +49,14 @@ _INDEXED = re.compile(r"^(lalayer|addlayer|vlayer)_(\d+)$")
 _RENAME = {("decoder", "embedding"): ("decoder", "embedding", "0"),
            ("critic", "Dense_0"): ("critic", "state2value", "0"),
            ("critic", "Dense_1"): ("critic", "state2value", "3")}
+# applied in order, each to the path the rules before it left
+_PRETRAIN_RENAME = {
+    ("mlmhead",): ("mlmhead", "predictions"),
+    ("mlmhead", "predictions", "transform"):
+        ("mlmhead", "predictions", "transform", "dense"),
+    ("mlmhead", "predictions", "LayerNorm"):
+        ("mlmhead", "predictions", "transform", "LayerNorm"),
+    ("next_action", "Dense_0"): ("next_action",)}
 
 
 def flatten_params(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
@@ -50,7 +68,8 @@ def flatten_params(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
         if isinstance(val, Mapping):
             out.update(flatten_params(val, path))
         else:
-            out[path] = np.asarray(val)
+            out[path] = val if isinstance(val, torch.Tensor) \
+                else np.asarray(val)
     return out
 
 
@@ -74,13 +93,44 @@ def speaker_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
     return _state_dict_from_jax(params, {})
 
 
+def pretrain_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """The port's ``DicAddActionPreTrain`` / ``DicPMActionPreTrain``
+    state_dict (numpy f32 arrays) from the JAX model's param tree."""
+    return _state_dict_from_jax(params, _PRETRAIN_RENAME)
+
+
+def jax_path_of(model: nn.Module, name: str) -> str:
+    """The JAX pretraining model's param path (``"bert/lalayer_0/..."``)
+    of the port's parameter ``name``: the renames of
+    :func:`pretrain_state_dict_from_jax` undone in reverse order, and a
+    ``weight`` named by its module's kind (Embedding ``embedding``,
+    LayerNorm ``scale``, Linear ``kernel``)."""
+    *mod, leaf = name.split(".")
+    owner = model.get_submodule(".".join(mod))
+    if leaf == "weight":
+        leaf = ("embedding" if isinstance(owner, nn.Embedding) else
+                "scale" if isinstance(owner, nn.LayerNorm) else "kernel")
+    path = tuple(mod)
+    for head, new in reversed(list(_PRETRAIN_RENAME.items())):
+        if path[:len(new)] == new:
+            path = head + path[len(new):]
+    # "lalayer.0" is JAX's "lalayer_0"
+    return re.sub(r"/(\d+)(?=/)", r"_\1", "/".join(path + (leaf,)))
+
+
+def _as_f32(val) -> np.ndarray:
+    if isinstance(val, torch.Tensor):
+        return val.float().numpy()
+    return np.asarray(val, np.float32)
+
+
 def _state_dict_from_jax(params: Mapping, renames: Mapping[Path, Path]
                          ) -> Dict[str, np.ndarray]:
     tree = params.get("params", params)
     state: Dict[str, np.ndarray] = {}
     for path, val in flatten_params(tree).items():
         *mod, leaf = path
-        val = np.asarray(val, np.float32)
+        val = _as_f32(val)
         if mod[-1] in ("fwd_cell", "bwd_cell"):
             sfx = "_l0" if mod[-1] == "fwd_cell" else "_l0_reverse"
             base = ".".join(_module_path(tuple(mod[:-1]), renames))

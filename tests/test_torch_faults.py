@@ -1,13 +1,16 @@
 """Repaired faults of the port against the JAX package.
 
-F1: ``pretrain_model_name`` is refused, naming ROADMAP.md, until the
-pretraining loader is ported (the JAX agent loads the encoder from it).
+F1: ``pretrain_model_name`` grafts the checkpoint's encoder weights at
+construction, as the JAX agent does (a refusal stood in before the
+pretraining loader was ported).
 F2: a parameter left without a gradient in a step is stepped with a zero
 gradient, as ``optax.multi_transform`` over ``build_optimizer`` feeds every
 leaf (RMSprop's and Adam's moments decay, Adam's count stays the
 component's, weight decay moves the leaf).  F3: an LSTM's bias moves as
 the JAX cell's single bias b: ``bias_hh`` is zero and untrained.
 """
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,10 +28,36 @@ from dasa_tpu_torch.train.optim import ComponentOptimizer
 NAMES = ("encoder", "decoder", "critic", "adain")
 
 
-def test_pretrain_model_name_raises():
-    cfg = Config(pretrain_model_name="pretrain/bert.pt")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Seq2SeqAgent(cfg, None, None, device="cpu")
+def test_pretrain_model_name_raises(tmp_path, capsys):
+    """F1 repaired: the agent grafts the checkpoint's DicModel into its
+    encoder at construction (before its optimizer is built) instead of
+    raising; every other weight keeps its init."""
+    cfg = Config(encoder_type="Dic", include_vision=True, d_la_layers=1,
+                 d_vl_layers=1, d_enc_hidden_size=16, d_hidden_size=32,
+                 critic_dim=32, feature_size=16, angle_feat_size=8)
+    feats = SimpleNamespace(values=np.zeros((2, 36, 16), np.float32))
+    plain = Seq2SeqAgent(cfg, None, feats, device="cpu")
+    bert = {k: v + 1.0 for k, v in
+            plain.policy.encoder.bert.state_dict().items()}
+    vocab = 40  # a Pretrainer's word vocab: the leading rows of 30522
+    bert["embeddings.word_embeddings.weight"] = \
+        bert["embeddings.word_embeddings.weight"][:vocab]
+    torch.save({"step": 5, "state_dict": {f"bert.{k}": v
+                                          for k, v in bert.items()}},
+               tmp_path / "checkpoint-5")
+    agent = Seq2SeqAgent(cfg.replace(pretrain_model_name=str(tmp_path)),
+                         None, feats, device="cpu")
+    assert "Initialized encoder from pretrain checkpoint" in \
+        capsys.readouterr().out
+    got, init = agent.policy.state_dict(), plain.policy.state_dict()
+    for k, v in init.items():
+        if not k.startswith("encoder.bert."):
+            assert torch.equal(got[k], v), k
+        elif k.endswith("word_embeddings.weight"):
+            assert torch.equal(got[k][:vocab], bert[k[13:]])
+            assert torch.equal(got[k][vocab:], v[vocab:])
+        else:
+            assert torch.equal(got[k], bert[k[13:]]), k
 
 
 @pytest.mark.parametrize("weight_decay", [0.0, 0.01])

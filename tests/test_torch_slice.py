@@ -181,9 +181,12 @@ def test_import_does_not_load_jax_or_the_jax_package():
         "import dasa_tpu_torch, dasa_tpu_torch.ops, dasa_tpu_torch.testing\n"
         "import dasa_tpu_torch.train.trainer, dasa_tpu_torch.utils.jax_params\n"
         "import dasa_tpu_torch.cli, dasa_tpu_torch.train.optim\n"
-        "import dasa_tpu_torch.train.metrics\n"
+        "import dasa_tpu_torch.train.metrics, dasa_tpu_torch.pretrain.trainer\n"
+        "import dasa_tpu_torch.utils.flax_msgpack\n"
+        "import dasa_tpu_torch.utils.pretrain_load\n"
+        "import dasa_tpu_torch.utils.torch_import\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'optax', 'dasa_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'dasa_tpu')]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
 
@@ -192,7 +195,7 @@ def test_port_sources_import_nothing_of_jax_or_the_jax_package():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for base, _dirs, names in os.walk(os.path.join(REPO, "dasa_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
-    banned = {"jax", "jaxlib", "flax", "optax", "dasa_tpu"}
+    banned = {"jax", "jaxlib", "flax", "optax", "msgpack", "dasa_tpu"}
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

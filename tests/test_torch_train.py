@@ -342,11 +342,26 @@ def test_same_seed_same_gradients(world):
 @pytest.mark.parametrize("option", [
     dict(device_rollout="never"), dict(pretrain_model_name="bert.pt"),
     dict(fuse_passes="auto"), dict(remat="percept")])
-def test_unported_training_paths_raise(world, option):
+def test_unported_training_paths_raise(world, option, tmp_path):
     """The training options the port leaves out raise, naming ROADMAP.md;
-    ``device_rollout="never"`` runs the host act/replay rollout instead:
-    a teacher-ML and a sampled pass with finite losses and gradients."""
-    if option.get("device_rollout") == "never":
+    ``device_rollout="never"`` runs the host act/replay rollout instead,
+    and ``pretrain_model_name`` grafts a Pretrainer snapshot (written
+    here, under that name) into the encoder first: a teacher-ML and a
+    sampled pass with finite losses and gradients."""
+    if "pretrain_model_name" in option:
+        plain = port_agent(world)
+        snap = tmp_path / option["pretrain_model_name"]
+        torch.save({"step": 1, "state_dict": {
+            f"bert.{k}": v + 0.5
+            for k, v in plain.policy.encoder.bert.state_dict().items()}},
+            snap)
+        option = dict(pretrain_model_name=str(snap))
+        grafted = port_agent(world, **option).policy.encoder.bert
+        assert torch.equal(grafted.pooler.dense.weight,
+                           plain.policy.encoder.bert.pooler.dense.weight
+                           + 0.5)
+    if "pretrain_model_name" in option or \
+            option.get("device_rollout") == "never":
         agent = port_agent(world, **option)
         agent.zero_grad()
         agent.accumulate_gradient("sample")

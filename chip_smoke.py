@@ -9,6 +9,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --phases build,kernels,speaker,speaker-compare,selftrain
     python3 chip_smoke.py --phases build,kernels,host,search
     python3 chip_smoke.py --phases build,pretrain,pretrain-chain
+    python3 chip_smoke.py --phases build,kernels,variants
 
 Phases:
   1. build — print the card's name and power limit, build the CUDA
@@ -18,7 +19,10 @@ Phases:
      at the headline shapes, with the tolerance stated, for the episodic
      batch (B = 20) and again for the stream window's 2B = 40 slot rows
      (rows named ``[B40]``: K1 both directions with and without the gate
-     activations, K2, K3 on 1440 / 640 rows, K4); times (CUDA
+     activations, K2, K3 on 1440 / 640 rows, K4); K1 in one direction
+     (``lstm_scan``: the top LSTM under ``d_bidirectional=False``) at both
+     batches, with LstmScanFn's gradients, against a cuDNN
+     ``nn.LSTM(bidirectional=False)``; times (CUDA
      events, median) of kernel, plain version and one yardstick PyTorch
      call, and the kernel / yardstick ratio, beside the least time the
      card could take.  Also the device time of kernel and yardstick
@@ -133,6 +137,24 @@ Phases:
      30522 rows) grafted the same way, exactly; (c) the listener
      checkpoint of (a) loaded back into a fresh listener, exactly; the
      counters read back.  Fails unless K1-K4 launched.
+  16. variants — the DASA variants on the Dic listener at headline width
+     (bf16, ``use_pallas="always"``), eight configurations that build
+     every agent type and every AdaIN type once (``VARIANTS``): (1) the
+     BAttn decoder with the back head (pre), the progress monitor
+     (att_hid) and DyReLU candidates, channel AdaIN (a, sigmoid); (2) the
+     gumbel-sigmoid gate (ab), back (cur), progress (plain_att), the top
+     LSTM in one direction and ctx_v; (3) double + COCO; (4) advanced +
+     mean; (5) kvmem + rgb mean + back; (6) new + depth stat; (7) mutan +
+     rgb stat; (8) mt + rgb channel.  Each: the launch counters set to 0,
+     ``train()`` (2 episodic iterations) and ``valid()`` on val_unseen
+     (every instr_id once), 1 and 8 also one stream window, 1 one
+     host-rollout iteration, the counters read back.  Fails unless every
+     loss is finite, each configured auxiliary loss (back, pm, kl) is
+     logged and nonzero, and exactly the configuration's kernels
+     launched: K1 and K2 in all (K1 in one direction in 2), K3 in 1 and
+     8, K4 in 1 and 2.  Prints s an iteration, peak memory and the
+     launches; then (1)'s teacher pass under always and never (phase 6's
+     limits, not counted).
   profile (only when named in --phases) — one eval batch, one training
      iteration, one stream window, one selfTrain iteration, one search
      batch, one host-rollout iteration and one pretraining step at
@@ -143,7 +165,8 @@ Then one ``{"kernels": [...]}`` JSON line (``launches``: the count during
 during ``train()`` under stream; ``launches_speaker``: during phase 9;
 ``launches_selftrain``: during phase 11; ``launches_host``: during phase
 12; ``launches_search``: during phase 13's searches;
-``launches_pretrain_chain``: during phase 15; ``ratio``: ``ms`` /
+``launches_pretrain_chain``: during phase 15; ``launches_variants``:
+during phase 16's runs; ``ratio``: ``ms`` /
 ``library_ms``; ``device_ms`` / ``library_device_ms``: the back-to-back
 device times), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -229,9 +252,51 @@ EVAL_KERNELS = ("bilstm_scan", "adain_channel_gate", "shift_attend")
 PATH_KERNELS = ("bilstm_scan", "lstm_scan_bwd", "adain_channel_gate",
                 "shift_attend")
 
+# phase 16: the DASA variants on the Dic listener, paired so that every
+# agent type and every AdaIN type is built once: (label, overrides, the
+# auxiliary logs that must be nonzero, the kernels that must launch (the
+# others must not), extra runs).  K4 runs only in the BAttn decoder's
+# shift attention (configurations 1 and 2; the double decoder takes none),
+# K3 only under channel / rgb_channel with ab_type a and sigmoid.
+K12 = ("bilstm_scan", "lstm_scan_bwd")
+VARIANTS = (
+    ("1 heads+dyrelu", dict(adain_type="channel", ab_type="a",
+                            a_type="sigmoid", pred_back=True,
+                            back_input="pre", pred_pm=True,
+                            pm_type="att_hid", decoder_type="dyrelu"),
+     ("back_loss", "pm_loss"),
+     K12 + ("adain_channel_gate", "shift_attend"),
+     ("stream", "host", "compare")),
+    ("2 gumbel+uni+ctx_v", dict(adain_type="channel", ab_type="ab",
+                                a_type="gumbel_sigmoid", pred_back=True,
+                                back_input="cur", pred_pm=True,
+                                pm_type="plain_att", d_bidirectional=False,
+                                ctx_v=True),
+     ("back_loss", "pm_loss"), ("lstm_scan", "lstm_scan_bwd",
+                                "shift_attend"), ()),
+    ("3 double+coco", dict(agent_type="double", adain_type="coco_channel",
+                           ab_type="ab", a_type="sigmoid"), (), K12, ()),
+    ("4 advanced+mean", dict(agent_type="advanced",
+                             adain_type="meanchannel"), ("pm_loss",), K12,
+     ()),
+    ("5 kvmem+rgb_mean+back", dict(agent_type="kvmem",
+                                   adain_type="rgb_meanchannel",
+                                   pred_back=True), ("back_loss",), K12, ()),
+    ("6 new+depth_stat", dict(agent_type="new",
+                              adain_type="depth_stat_channel"), (), K12, ()),
+    ("7 mutan+rgb_stat", dict(agent_type="mutan",
+                              adain_type="rgb_stat_channel"), (), K12, ()),
+    ("8 mt+rgb_channel", dict(agent_type="mt", adain_type="rgb_channel",
+                              ab_type="a", a_type="sigmoid"), ("kl_loss",),
+     K12 + ("adain_channel_gate",), ("stream",)),
+)
+VARIANT_ITERS = 2
+
 KERNEL_INFO = {
     "bilstm_scan": ("dasa_tpu_torch/csrc/lstm_fwd.cu",
                     "dasa_tpu/ops/lstm.py:38 (_fwd_kernel)"),
+    "lstm_scan": ("dasa_tpu_torch/csrc/lstm_fwd.cu",
+                  "dasa_tpu/ops/lstm.py:38 (_fwd_kernel)"),
     "lstm_scan_bwd": ("dasa_tpu_torch/csrc/lstm_bwd.cu",
                       "dasa_tpu/ops/lstm.py:65 (_bwd_kernel)"),
     "adain_channel_gate": ("dasa_tpu_torch/csrc/adain_gate.cu",
@@ -364,6 +429,7 @@ def phase_kernels(seed: int):
         rows += k1 + k2 + k3 + k4
         if tag:  # BiLstmScanFn at the stream width (one launch a direction)
             check_bilstm_fn_grads(rnd, mask2, wh2, "BiLstmScanFn B40")
+            check_lstm_fn_grads(rnd, mask, wh, "LstmScanFn B40")
         else:
             check_function_grads(rnd, mask, wh, w_t, bias, w_in, w_s, b_s,
                                  mask2, wh2)
@@ -415,7 +481,8 @@ def _named(base, tag, *more):
 
 def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
                      ragged=True, bwd=True):
-    """K1 (one direction without a tag only; both directions, with and
+    """K1 (one direction untagged and tagged ``B40``: the listener's top
+    LSTM under ``d_bidirectional=False``; both directions, with and
     without the gate activations) and, with ``bwd``, K2 at batch B, T
     tokens, H units a direction: the listener's top BiLSTM (T 80, H 1024,
     input 768, ragged lengths) or, tagged ``spk``, the speaker's (T 35, H
@@ -460,13 +527,18 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
                            2e-2, 1e-2),
                check_close(_named("bilstm_scan acts", tag), got2[2], ref2[2],
                            2e-2, 0.0))
-    if not tag:
+    # the listener's top LSTM in one direction (d_bidirectional=False)
+    one_dir = tag in ("", "B40")
+    if one_dir:
         hk, ck, ak = lstm_scan(xw, mask, h0, c0, wh, with_acts=True)
         torch.cuda.synchronize()
         hr, cr, ar = _fwd_ref(xw, mask, h0, c0, wh)
-        err = max(check_close("lstm_scan h_seq", hk, hr, 2e-2, 0.0),
-                  check_close("lstm_scan c_seq", ck, cr, 2e-2, 1e-2),
-                  check_close("lstm_scan acts", ak, ar, 2e-2, 0.0))
+        err = max(check_close(_named("lstm_scan h_seq", tag), hk, hr, 2e-2,
+                              0.0),
+                  check_close(_named("lstm_scan c_seq", tag), ck, cr, 2e-2,
+                              1e-2),
+                  check_close(_named("lstm_scan acts", tag), ak, ar, 2e-2,
+                              0.0))
     else:
         ck, ak = got2[1][0], got2[2][0]
     for dirs in (1, 2):
@@ -492,10 +564,10 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
              "(includes the input projection)")
     shape = f"T{T} B{B} H{H}"
     with torch.no_grad():
-        if not tag:
+        if one_dir:
             rows.append(dict(
-                name="lstm_scan", shape=f"{shape} (one direction)",
-                max_abs_err=err, tokens=T, json=False,
+                name=_named("lstm_scan", tag),
+                shape=f"{shape} (one direction)", max_abs_err=err, tokens=T,
                 fn=lambda: lstm_scan(xw, mask, h0, c0, wh),
                 plain_ms=time_ms(lambda: lstm_scan_ref(xw, mask, h0, c0, wh),
                                  iters=5),
@@ -694,33 +766,41 @@ def check_bilstm_fn_grads(rnd, mask2, wh2, name):
             (rnd(2, T, B, H, scale=0.05), g_c2), 5e-2)
 
 
+def check_lstm_fn_grads(rnd, mask, wh, name):
+    """LstmScanFn (K1 forward, K2 backward: the one-direction top LSTM)
+    against autograd through the plain version, at the mask's batch."""
+    import torch
+
+    from dasa_tpu_torch.ops.lstm import LstmScanFn, lstm_scan_ref
+
+    T, B = mask.shape
+    H = wh.shape[0]
+    g_c = torch.zeros(T, B, H, device=mask.device, dtype=mask.dtype)
+    g_c[-1] = rnd(B, H, scale=0.05)
+    # the kernel path rounds the gates, c_prev and dgates to bf16 where the
+    # plain autograd keeps f32 (the TPU package's design): a few percent
+    compare(name,
+            lambda xw, h0, c0, w: LstmScanFn.apply(xw, mask, h0, c0, w),
+            lambda xw, h0, c0, w: lstm_scan_ref(xw, mask, h0, c0, w),
+            (rnd(T, B, 4 * H, scale=0.5), rnd(B, H, scale=0.1),
+             rnd(B, H, scale=0.1), wh), ("xw", "h0", "c0", "wh"),
+            (rnd(T, B, H, scale=0.05), g_c), 5e-2)
+
+
 def check_function_grads(rnd, mask, wh, w_ta, b_a, w_in, w_s, b_s, mask2,
                          wh2):
     """Gradients of LstmScanFn, BiLstmScanFn, AdainGateFn and
     ShiftAttendFn (kernels forward) against autograd through the plain
     versions, at the headline shapes, for a random cotangent."""
-    import torch
-
     from dasa_tpu_torch.ops.adain import AdainGateFn, adain_channel_gate_ref
-    from dasa_tpu_torch.ops.lstm import LstmScanFn, lstm_scan_ref
     from dasa_tpu_torch.ops.shift_attention import (
         ShiftAttendFn,
         shift_attend_ref,
     )
 
-    T, B = mask.shape
+    B = mask.shape[1]
     H = wh.shape[0]
-    lstm_leaves = (rnd(T, B, 4 * H, scale=0.5), rnd(B, H, scale=0.1),
-                   rnd(B, H, scale=0.1), wh)
-    g_c = torch.zeros(T, B, H, device=mask.device, dtype=mask.dtype)
-    g_c[-1] = rnd(B, H, scale=0.05)
-    # the kernel path rounds the gates, c_prev and dgates to bf16 where the
-    # plain autograd keeps f32 (the TPU package's design): a few percent
-    compare("LstmScanFn",
-            lambda xw, h0, c0, w: LstmScanFn.apply(xw, mask, h0, c0, w),
-            lambda xw, h0, c0, w: lstm_scan_ref(xw, mask, h0, c0, w),
-            lstm_leaves, ("xw", "h0", "c0", "wh"),
-            (rnd(T, B, H, scale=0.05), g_c), 5e-2)
+    check_lstm_fn_grads(rnd, mask, wh, "LstmScanFn")
     check_bilstm_fn_grads(rnd, mask2, wh2, "BiLstmScanFn")
     C = w_ta.shape[0]
     f, d = rnd(B, 36, C).relu(), rnd(B, 36, C).relu()
@@ -1892,6 +1972,167 @@ def phase_pretrain_chain(cfg, world, seed: int, root: str, pt, snap: str):
     return launches
 
 
+def variant_launch_check(label, launches, must):
+    """The kernels of ``must`` launched; every other one of K1-K4 (K1 in
+    either direction's wrapper) never did."""
+    for name in ("bilstm_scan", "lstm_scan", "lstm_scan_bwd",
+                 "adain_channel_gate", "shift_attend"):
+        if (launches[name] > 0) != (name in must):
+            fail(f"variants {label}: {name} launched {launches[name]} "
+                 f"times, expected {'some' if name in must else 'none'}")
+
+
+def variant_logs_check(label, logs, aux_keys):
+    """Every logged loss finite; each configured auxiliary term logged and
+    nonzero in some pass."""
+    for key, vals in logs.items():
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"variants {label}: non-finite {key} {vals}")
+    for key in aux_keys:
+        if not logs.get(key) or not any(v != 0.0 for v in logs[key]):
+            fail(f"variants {label}: {key} not logged or zero: "
+                 f"{logs.get(key)}")
+
+
+def variant_train(label, cfg, world, seed, aux_keys):
+    """train() of ``cfg`` (its ``iters`` optimizer steps) on a fresh agent;
+    returns (agent, s an iteration, peak bytes) after the checks.  The
+    peak is printed beside what the card held when train() began (the
+    agent's weights and whatever earlier phases keep alive)."""
+    import torch
+
+    from dasa_tpu_torch.train.trainer import make_agent, train
+
+    agent = make_agent(cfg, world, rng_seed=seed)
+    iter_s, logs = [], {}
+    run_iters = agent.train
+
+    def timed(n_iters, feedback):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        run_iters(n_iters, feedback=feedback)
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - start)
+        for key, vals in agent.logs.items():  # train() resets them
+            if key != "stream_consumed":
+                logs.setdefault(key, []).extend(float(v) for v in vals)
+
+    agent.train = timed
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    train(cfg, world, agent=agent)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del agent.train
+    if agent.iter_count != cfg.iters or len(iter_s) != cfg.iters:
+        fail(f"variants {label}: {agent.iter_count} optimizer steps, "
+             f"{len(iter_s)} timed, expected {cfg.iters}")
+    variant_logs_check(label, logs, aux_keys)
+    aux = {k: round(statistics.mean(logs[k]), 6) for k in aux_keys}
+    print(f"  {label}: s an iteration {[round(x, 4) for x in iter_s]}; "
+          f"peak {peak / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} GiB held "
+          f"when train() began); losses "
+          f"{[round(x, 4) for x in logs['loss']]}; aux means {aux}",
+          flush=True)
+    return agent, iter_s, peak
+
+
+def phase_variants(cfg, seed: int, root: str):
+    """Each configuration of VARIANTS: train() (VARIANT_ITERS episodic
+    iterations) and valid() on val_unseen, the launch counters set to 0
+    before and read after; configuration 1 adds a stream window, a
+    host-rollout iteration and an always-vs-never teacher pass (phase 6's
+    limits, not counted), configuration 8 a stream window."""
+    import shutil
+
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.train.trainer import World, make_agent, valid
+
+    world = World(cfg, val_splits=("val_unseen",))
+    total = {}
+    card = card_name()
+    for n, (label, over, aux_keys, must, extra) in enumerate(VARIANTS, 1):
+        base = cfg.replace(**over, iters=VARIANT_ITERS, log_every=1,
+                           val_every=10 ** 9, save_every=10 ** 9,
+                           name=f"variant{n}",
+                           snap_dir=os.path.join(root, "variants"),
+                           log_dir=os.path.join(root, "variants_log"))
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        agent, iter_s, peak = variant_train(label, base, world, seed,
+                                            aux_keys)
+        trajs = capture_results(agent)
+        start = time.perf_counter()
+        out = valid(base, world, agent=agent)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - start
+        del agent.test
+        check_coverage(world, trajs)
+        check_summary("val_unseen", out["val_unseen"])
+        del agent
+        for regime in (r for r in extra if r != "compare"):
+            # one more optimizer step in another regime
+            over_r = (dict(rollout_mode="stream") if regime == "stream"
+                      else dict(device_rollout="never"))
+            agent, _, _ = variant_train(
+                f"{label} ({regime})", base.replace(iters=1, **over_r),
+                world, seed, aux_keys)
+            del agent
+        torch.cuda.synchronize()
+        launches = ops.kernel_launches()
+        print(f"  {label}: valid() {eval_s:.2f} s, SR "
+              f"{out['val_unseen']['success_rate']:.4f}; launches "
+              f"{launches}; card {card}", flush=True)
+        variant_launch_check(label, launches, must)
+        add_launches(total, launches)
+        if "compare" in extra:
+            variant_teacher_compare(label, base, world, seed)
+        shutil.rmtree(os.path.join(root, "variants"), ignore_errors=True)
+        gc.collect()
+    return total
+
+
+def variant_teacher_compare(label, cfg, world, seed: int):
+    """The same weights under use_pallas always and never, dropout off:
+    one teacher pass at train_ml 1 (the heads' terms in its loss); phase
+    6's limits on the loss and the gradients' cosine."""
+    import torch
+
+    from dasa_tpu_torch.train.trainer import make_agent
+
+    cfg = cfg.replace(**NO_DROPOUT)
+    env = world.envs["train"]
+    state, results = None, []
+    for mode in ("always", "never"):
+        agent = make_agent(cfg.replace(use_pallas=mode), world,
+                           rng_seed=seed)
+        if state is None:
+            state = agent.policy.state_dict()
+        agent.policy.load_state_dict(state)
+        agent.env = env
+        env.reset_epoch()
+        agent.zero_grad()
+        agent.device_rollout(train_ml=1.0, train_rl=False,
+                             feedback="teacher")
+        grad = torch.cat([p.grad.float().flatten()
+                          for p in agent.policy.parameters()
+                          if p.grad is not None])
+        results.append((float(agent.losses[-1]), grad))
+        del agent
+    (la, ga), (ln, gn) = results
+    cos = float(torch.dot(ga, gn) / (ga.norm() * gn.norm()))
+    print(f"  {label}: teacher pass loss always {la:.6f} never {ln:.6f}; "
+          f"gradient cosine {cos:.6f}", flush=True)
+    if not abs(la - ln) <= 5e-2 * abs(ln):
+        fail(f"variants {label}: teacher loss {la} vs {ln} beyond 5%")
+    if not cos >= 0.99:
+        fail(f"variants {label}: gradient cosine {cos} below 0.99")
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2040,7 +2281,8 @@ def main() -> None:
     ap.add_argument("--phases",
                     default="build,kernels,main,compare,train,train-compare,"
                             "stream,stream-eval,speaker,speaker-compare,"
-                            "selftrain,host,search,pretrain,pretrain-chain")
+                            "selftrain,host,search,pretrain,pretrain-chain,"
+                            "variants")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2069,10 +2311,11 @@ def main() -> None:
     launches_eval, launches, launches_stream = {}, {}, {}
     launches_speaker, launches_selftrain = {}, {}
     launches_host, launches_search, launches_chain = {}, {}, {}
+    launches_variants = {}
     if phases & {"main", "compare", "train", "train-compare", "stream",
                  "stream-eval", "profile", "speaker", "speaker-compare",
                  "selftrain", "host", "search", "pretrain",
-                 "pretrain-chain"}:
+                 "pretrain-chain", "variants"}:
         with tempfile.TemporaryDirectory() as root:
             cfg, world = headline_world(root, args.seed, use_pallas="always")
             cfg_train = cfg.replace(**TRAIN)
@@ -2141,6 +2384,12 @@ def main() -> None:
                       flush=True)
                 launches_chain = phase_pretrain_chain(
                     cfg_train, world, args.seed, root, pt, snap)
+            if "variants" in phases:
+                print("== phase 16 (variants): the DASA variants on the Dic "
+                      "listener at headline width, train() and valid()",
+                      flush=True)
+                launches_variants = phase_variants(cfg_train, args.seed,
+                                                   root)
             if "profile" in phases:
                 print("== profile: one eval batch, one training iteration, "
                       "one stream window, one selfTrain iteration, one "
@@ -2148,7 +2397,7 @@ def main() -> None:
                 phase_profile(cfg, cfg_train, world, args.seed)
     if rows:
         print("== phase 2 rows with the launches of phases 3, 5, 7, 9, 11, "
-              "12, 13 and 15", flush=True)
+              "12, 13, 15 and 16", flush=True)
     for r in rows:
         base = r["name"].split("[")[0]
         per_token = ("" if "us_per_token" not in r
@@ -2161,8 +2410,9 @@ def main() -> None:
               f"{launches_speaker.get(base, 0)} in the speaker phase, "
               f"{launches_selftrain.get(base, 0)} in selfTrain train(), "
               f"{launches_host.get(base, 0)} in the host phase, "
-              f"{launches_search.get(base, 0)} in the searches and "
-              f"{launches_chain.get(base, 0)} in the pretrained chain"
+              f"{launches_search.get(base, 0)} in the searches, "
+              f"{launches_chain.get(base, 0)} in the pretrained chain and "
+              f"{launches_variants.get(base, 0)} in the variants"
               f"{per_token}",
               flush=True)
     out = []
@@ -2181,6 +2431,7 @@ def main() -> None:
                     "launches_host": launches_host.get(base, 0),
                     "launches_search": launches_search.get(base, 0),
                     "launches_pretrain_chain": launches_chain.get(base, 0),
+                    "launches_variants": launches_variants.get(base, 0),
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

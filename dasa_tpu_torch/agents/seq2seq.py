@@ -46,6 +46,7 @@ agent), ``remat`` other than ``never`` and data parallel raise
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from collections import defaultdict
 from typing import Dict, List, Optional
@@ -78,7 +79,10 @@ from dasa_tpu_torch.models.policy import (
 from dasa_tpu_torch.sim.engine import micro_trajectory
 from dasa_tpu_torch.train.optim import COMPONENTS, ComponentOptimizer
 from dasa_tpu_torch.utils import flax_msgpack
-from dasa_tpu_torch.utils.angles import all_point_angle_feature
+from dasa_tpu_torch.utils.angles import (
+    all_point_angle_feature,
+    view_rel_weight_table,
+)
 from dasa_tpu_torch.utils.device import resolve_device
 from dasa_tpu_torch.utils.jax_params import policy_state_dict_from_jax
 from dasa_tpu_torch.utils.pretrain_load import load_pretrained_encoder
@@ -113,11 +117,89 @@ def make_step_inputs(cfg: Config, tables, sobs) -> StepInputs:
         d_t, cand_d = f_t, cand
     act_feat = angle_feature(sobs["heading"], sobs["elevation"],
                              cfg.angle_feat_size).to(f_t.dtype)
-    return StepInputs(act_feat, f_t, d_t, cand, cand_d, sobs["logit_mask"])
+    # view-token index per candidate slot (the STOP slot and the padding
+    # -> the learned stop token at index `views`); the MT decoder's
+    slots = torch.arange(sobs["cand_point_id"].shape[-1],
+                         device=f_t.device)
+    cand_idx = torch.where(slots >= sobs["cand_n"][..., None], cfg.views,
+                           sobs["cand_point_id"].clamp(0, cfg.views - 1))
+    return StepInputs(act_feat, f_t, d_t, cand, cand_d, sobs["logit_mask"],
+                      cand_idx.long())
 
 
 def _entropy(logp, p):
     return -torch.where(p > 0, p * logp, 0.0).sum(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _view_weights(device: torch.device) -> torch.Tensor:
+    """The (36, 36) view-proximity table on ``device``, made once."""
+    return torch.as_tensor(view_rel_weight_table(), device=device)
+
+
+def mt_kl_rows(logp, teacher, cand_point_id, cand_n, has_row):
+    """Per-row soft-distance KL of the MT agent (agent_mt.py:712-718,
+    ``dasa_tpu/agents/seq2seq.py:101``).  The target over each row's real
+    candidate slots is the softmax of the angular-proximity weights
+    between each candidate's view and the teacher candidate's view
+    (utils.py:703-713; the other slots masked to -1e5); the elements are
+    target * (log target - logp) over the real slots of the rows
+    ``has_row`` (a real teacher move).  Returns (kl_row, cnt_row): each
+    row's summed elements and their count; the caller divides the sums
+    for the reference's per-step ``mean``."""
+    k = logp.shape[-1]
+    table = _view_weights(logp.device)
+    views = cand_point_id.clamp(0, table.shape[0] - 1)
+    t_view = views.gather(1, teacher.clamp(0, k - 1)[:, None])[:, 0]
+    w = table[t_view[:, None], views]                         # (B, K)
+    real = torch.arange(k, device=logp.device)[None, :] < cand_n[:, None]
+    tgt = torch.softmax(torch.where(real, w, -1e5), dim=-1)
+    valid = real & has_row[:, None]
+    elem = torch.where(valid, torch.xlogy(tgt, tgt) - tgt * logp.float(),
+                       0.0)
+    return elem.sum(-1), valid.sum(-1).float()
+
+
+def back_ce(aux, sobs):
+    """Cross-entropy of the back head's masked logits with the teacher's
+    move back toward the start (seq2seq.py:481-488), per row."""
+    back = aux["back_logit"].float().masked_fill(sobs["logit_mask"], NEG_INF)
+    blogp = torch.log_softmax(back, dim=-1)
+    return -blogp.gather(1, sobs["back_teacher"][:, None])[:, 0]
+
+
+def aux_terms(cfg, aux, logp, sobs, active, pm_target) -> dict:
+    """One step's auxiliary loss terms of the episodic passes
+    (seq2seq.py:481-515, 897-956): the back head's cross-entropy per row
+    (every row), the progress monitor's and agent_advanced's squared error
+    against the episode-start progress ``pm_target`` as batch means (0 on
+    a step where no row is active), and the MT agent's KL as a mean over
+    the step's valid elements."""
+    outs = {}
+    real = active.any().float()
+    if cfg.pred_back:
+        outs["back_ce"] = back_ce(aux, sobs)
+    if cfg.pred_pm:
+        outs["pm_mse"] = ((aux["pm_score"].float() - pm_target) ** 2
+                          ).mean() * real
+    if cfg.agent_type == "advanced":
+        outs["adv_pm_mse"] = ((aux["pred_progress"].float() - pm_target)
+                              ** 2).mean() * real
+    if cfg.agent_type == "mt":
+        kl_row, cnt_row = mt_kl_rows(
+            logp, sobs["teacher"], sobs["cand_point_id"], sobs["cand_n"],
+            active & (sobs["teacher"] < sobs["cand_n"]))
+        outs["kl"] = kl_row.sum() / cnt_row.sum().clamp(min=1.0)
+    return outs
+
+
+def start_progress(dev, ep) -> torch.Tensor:
+    """The episode-start progress, the progress monitor's target (=0 up
+    to the eps term; the reference reads it once before the step loop,
+    agent_dg.py:683, 864-866)."""
+    goal = ep["goal"]
+    total = dev.dist[ep["node0"], goal - dev.node_base[goal]]
+    return 1.0 - total / (total + 1e-10)
 
 
 def _env_and_reward(arrays, sobs, node, view, action, ended, goal_local):
@@ -574,16 +656,37 @@ class Seq2SeqAgent(StreamMixin):
         return (_stack(recs), final, torch.stack(rewards), torch.stack(masks),
                 ended)
 
-    def _finish_loss(self, batch: int, outs: List[tuple], rewards, rl_masks,
+    def _finish_loss(self, batch: int, outs: List[dict], rewards, rl_masks,
                      g0, ml_weight: float, rl_weight: float,
                      ent_weight: float):
-        """The IL + A2C loss from per-step (ce, logp_a, entropy, value)
-        (seq2seq.py:522-591, 1119-1202): ml_weight * sum(ce) / batch, and
-        the A2C loss of the discounted returns bootstrapped from ``g0``,
-        normalized by ``normalize_loss``."""
+        """The IL + A2C loss from the per-step outs (ce, logp_a, ent,
+        value and the auxiliary terms of :func:`aux_terms`)
+        (seq2seq.py:522-591, 1105-1202): ml_weight * (sum(ce) + the
+        weighted auxiliary sums) / batch, and the A2C loss of the
+        discounted returns bootstrapped from ``g0``, normalized by
+        ``normalize_loss``.  The auxiliary sums are logged as
+        ``back_loss`` (weighted), ``pm_loss`` (weighted; agent_advanced's
+        raw) and ``kl_loss``."""
         cfg = self.cfg
-        ce, logp_a, ent, value = (torch.stack(x) for x in zip(*outs))
-        ml_loss = ce.sum()
+        grid = {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+        ce, logp_a, ent, value = (grid[k] for k in ("ce", "logp_a", "ent",
+                                                    "value"))
+        forth_loss = ce.sum()
+        ml_loss, logs = forth_loss, {}
+        if cfg.pred_back:
+            logs["back_loss"] = cfg.back_weight * grid["back_ce"].sum()
+            ml_loss = ml_loss + logs["back_loss"]
+        if cfg.pred_pm:
+            logs["pm_loss"] = cfg.pm_weight * grid["pm_mse"].sum()
+            ml_loss = ml_loss + logs["pm_loss"]
+        if cfg.agent_type == "advanced":
+            # fixed x10 weight (agent_advanced.py:564), logged raw
+            logs["pm_loss"] = grid["adv_pm_mse"].sum()
+            ml_loss = ml_loss + 10.0 * logs["pm_loss"]
+        if cfg.agent_type == "mt":
+            # rides the ml scaling (agent_mt.py:871), logged raw
+            logs["kl_loss"] = grid["kl"].sum()
+            ml_loss = ml_loss + logs["kl_loss"]
         total_loss = ml_weight * ml_loss / batch
         returns, g = [], g0
         for t in reversed(range(rewards.shape[0])):
@@ -600,35 +703,46 @@ class Seq2SeqAgent(StreamMixin):
         elif cfg.normalize_loss == "batch":
             rl_loss = rl_loss / batch
         total_loss = total_loss + rl_weight * rl_loss
-        logs = {"forth_loss": ml_loss, "entropy": ent.sum(),
-                "ml_loss": ml_loss, "rl_loss": rl_weight * rl_loss,
-                "critic_loss": rl_weight * critic, "total": total,
-                "loss": total_loss}
+        logs.update(forth_loss=forth_loss, entropy=ent.sum(),
+                    ml_loss=ml_loss, rl_loss=rl_weight * rl_loss,
+                    critic_loss=rl_weight * critic, total=total,
+                    loss=total_loss)
         return total_loss, logs
 
-    def _step_outs(self, logit, value, sobs, action, active):
-        """(ce, logp_a, entropy, value) of one step: cross-entropy with the
-        teacher on active rows, the log-probability of the taken action
-        (STOP for any slot past the candidates)."""
+    def _step_outs(self, logit, value, sobs, action, active, aux,
+                   pm_target):
+        """One step's outs: the cross-entropy with the teacher on active
+        rows, the log-probability of the taken action (STOP for any slot
+        past the candidates), the entropy, the value and the auxiliary
+        terms (:func:`aux_terms`)."""
         masked = logit.float().masked_fill(sobs["logit_mask"], NEG_INF)
         logp = torch.log_softmax(masked, dim=-1)
         ce = -logp.gather(1, sobs["teacher"][:, None])[:, 0]
         ce = torch.where(active, ce, torch.zeros_like(ce))
         a_rec = torch.minimum(action, sobs["cand_n"])
         logp_a = logp.gather(1, a_rec[:, None])[:, 0]
-        return ce, logp_a, _entropy(logp, logp.exp()), value.float()
+        outs = {"ce": ce, "logp_a": logp_a, "ent": _entropy(logp, logp.exp()),
+                "value": value.float()}
+        outs.update(aux_terms(self.cfg, aux, logp, sobs, active, pm_target))
+        return outs
 
     def _replay_loss(self, instr, valid, seq_len, stacked, final_sobs,
                      rewards, rl_masks, final_ended, gen, env_noise,
-                     ml_weight: float, rl_weight: float, ent_weight: float):
+                     ml_weight: float, rl_weight: float, ent_weight: float,
+                     pm_target: Optional[torch.Tensor] = None):
         """The replay body (seq2seq.py:399-593) over a recorded episode:
         the percepts of ALL steps and of the A2C bootstrap run as ONE
-        ((T+1) * B)-row batch (the top BiLSTM on its plain path, as the
-        JAX replay passes no ``lstm_pallas``), then the decoder steps
-        through the recorded observations and actions.  ``gen`` is a
-        generator or the host rollout's :class:`PassStreams`.  Returns
-        (loss, logs)."""
+        ((T+1) * B)-row batch (the top LSTM on its plain path, as the JAX
+        replay passes no ``lstm_pallas``; the gumbel gate out of test),
+        then the decoder steps through the recorded observations and
+        actions.  ``gen`` is a generator or the host rollout's
+        :class:`PassStreams`; ``pm_target`` (B,) the episode-start
+        progress, needed by the progress-monitor terms.  Returns (loss,
+        logs)."""
         cfg, policy = self.cfg, self.policy
+        if pm_target is None and (cfg.pred_pm
+                                  or cfg.agent_type == "advanced"):
+            raise ValueError("the progress-monitor loss needs pm_target")
         n_steps, batch = rewards.shape
         rep = n_steps + 1
         streams = (gen if isinstance(gen, PassStreams)
@@ -641,16 +755,16 @@ class Seq2SeqAgent(StreamMixin):
             {"text_embeds": cached["text_embeds"].repeat(rep, 1, 1)},
             valid.repeat(rep, 1), seq_len.repeat(rep),
             make_step_inputs(cfg, self.tables, flat), lstm_kernel=False,
-            deterministic=False, env_noise=env_noise,
+            deterministic=False, is_test=False, env_noise=env_noise,
             gen=streams.steps(rep, 0))
 
         def percept_at(t):
             def part(x):
-                return x.unflatten(0, (rep, batch))[t]
-            return {"ctx": part(percepts["ctx"]), "h0": part(percepts["h0"]),
-                    "c0": part(percepts["c0"]),
-                    "inputs": StepInputs(*(part(x)
-                                           for x in percepts["inputs"]))}
+                return None if x is None else x.unflatten(0, (rep, batch))[t]
+            out = {key: part(val) for key, val in percepts.items()
+                   if key != "inputs"}
+            out["inputs"] = StepInputs(*(part(x) for x in percepts["inputs"]))
+            return out
 
         width = decoder_state_width(cfg)
         zeros = torch.zeros(batch, width, dtype=self.dtype,
@@ -660,12 +774,12 @@ class Seq2SeqAgent(StreamMixin):
         outs = []
         for t in range(n_steps):
             sobs = {key: val[t] for key, val in stacked.items()}
-            state, logit, value, _aux = policy.decode_from_percept(
+            state, logit, value, aux = policy.decode_from_percept(
                 percept_at(t), valid, state, sobs["is_first"],
                 deterministic=False, already_dropfeat=dropfeat,
                 gen=streams.at(t, 1))
             outs.append(self._step_outs(logit, value, sobs, sobs["action"],
-                                        sobs["active"]))
+                                        sobs["active"], aux, pm_target))
         _, _, last_value, _ = policy.decode_from_percept(
             percept_at(n_steps), valid, state, final_sobs["is_first"],
             deterministic=False, already_dropfeat=dropfeat,
@@ -681,8 +795,9 @@ class Seq2SeqAgent(StreamMixin):
                     rl_weight: float, ent_weight: float,
                     record: Optional[dict] = None):
         """The sampled / argmax pass (seq2seq.py:765-1204, one pass wide):
-        per step the policy forward (the top BiLSTM through its kernels
-        unless ``use_pallas="never"``), the action, the env transition and
+        per step the policy forward (the top LSTM through its kernels
+        unless ``use_pallas="never"``; the gumbel gate out of test), the
+        action, the env transition and
         the reward, until every row has ended (the JAX program's
         all-ended cond, :1013-1017: the remaining steps add nothing); then
         the bootstrap value at the final state and the reversed A2C pass.
@@ -710,7 +825,9 @@ class Seq2SeqAgent(StreamMixin):
             return policy.policy_step(
                 cached, valid, seq_len, inputs, state, sobs["is_first"],
                 lstm_kernel=self._lstm_kernel, deterministic=False,
-                env_noise=env_noise, gen=gen)
+                is_test=False, env_noise=env_noise, gen=gen)
+
+        pm_target = start_progress(dev, ep)
 
         outs, rewards, masks, recs = [], [], [], []
         for t in range(cfg.max_action):
@@ -718,7 +835,7 @@ class Seq2SeqAgent(StreamMixin):
                 break
             sobs = device_obs(arrays, node, view, goal, start, total_dist, k)
             sobs["is_first"] = torch.full_like(ended, t == 0)
-            state, logit, value, _aux = policy_forward(sobs, state)
+            state, logit, value, aux = policy_forward(sobs, state)
             masked = logit.detach().float().masked_fill(sobs["logit_mask"],
                                                         NEG_INF)
             if feedback == "sample":
@@ -728,7 +845,8 @@ class Seq2SeqAgent(StreamMixin):
                 action = masked.argmax(dim=-1)
             else:
                 raise ValueError(feedback)
-            outs.append(self._step_outs(logit, value, sobs, action, ~ended))
+            outs.append(self._step_outs(logit, value, sobs, action, ~ended,
+                                        aux, pm_target))
             masks.append((~ended).float())
             if record is not None:
                 recs.append(_record(sobs, ended, t == 0,
@@ -749,6 +867,7 @@ class Seq2SeqAgent(StreamMixin):
         if record is not None:
             record.update(stacked=_stack(recs), rewards=rewards,
                           rl_masks=masks, final_ended=ended,
+                          pm_target=pm_target,
                           final_sobs=_record(sobs, ended, False,
                                              torch.zeros_like(node)))
         loss, logs = self._finish_loss(batch, outs, rewards, masks, g0,
@@ -783,7 +902,8 @@ class Seq2SeqAgent(StreamMixin):
                     self._teacher_trajectory(dev, ep, self._teacher_len())
                 loss, logs = self._replay_loss(
                     instr, valid, seq_len, stacked, final, rewards, masks,
-                    ended, gen, noise, *weights)
+                    ended, gen, noise, *weights,
+                    pm_target=start_progress(dev, ep))
                 logs["env_steps"] = stacked["active"].sum()
             else:
                 loss, logs = self._fused_loss(
@@ -837,13 +957,15 @@ class Seq2SeqAgent(StreamMixin):
                   streams: PassStreams, t: int):
         """One act step of the host rollout (``_act_fn``,
         seq2seq.py:341-382): the percept and the decoder step, with step
-        ``t``'s dropout streams when training and the top BiLSTM on its
-        plain path, as the replay takes it; then the masked argmax or a
-        sample from stream 2.  Returns (state, action)."""
+        ``t``'s dropout streams when training (the gumbel gate out of test
+        then) and the top LSTM on its plain path, as the replay takes it;
+        then the masked argmax or a sample from stream 2.  Returns (state,
+        action)."""
         cfg, policy = self.cfg, self.policy
         percept = policy.percept_step(
             cached, valid, seq_len, make_step_inputs(cfg, self.tables, sobs),
-            lstm_kernel=False, deterministic=not training, env_noise=noise,
+            lstm_kernel=False, deterministic=not training,
+            is_test=not training, env_noise=noise,
             gen=streams.at(t, 0) if training else None)
         state, logit, _value, _aux = policy.decode_from_percept(
             percept, valid, state, sobs["is_first"],
@@ -892,6 +1014,8 @@ class Seq2SeqAgent(StreamMixin):
                      else env_noise.to(self.device, self.dtype))
         if speaker is not None:
             obs = speaker.relabel_batch(env, noise)
+        # the progress monitor's target: the episode-start progress
+        pm_target = obs.progress.astype(np.float32).copy()
         instr = self._put(obs.instr).long()
         valid = self._put(~obs.pad_mask)
         seq_len = self._put(obs.seq_len).long()
@@ -964,7 +1088,8 @@ class Seq2SeqAgent(StreamMixin):
                             for k in records[0]},
                 "final_sobs": self._to_sobs(obs, ended, None, False),
                 "rewards": np.stack(rewards), "rl_masks": np.stack(rl_masks),
-                "final_ended": ended, "streams": streams, "noise": noise,
+                "final_ended": ended, "pm_target": pm_target,
+                "streams": streams, "noise": noise,
                 "weights": (train_ml if train_ml is not None else 0.0,
                             1.0 if train_rl else 0.0,
                             0.01 if train_rl else 0.0)}
@@ -981,6 +1106,7 @@ class Seq2SeqAgent(StreamMixin):
         of two replays of one length into one vmapped program is a
         code-generation choice, and the summed gradients are the same."""
         for rep in replays:
+            pm_target = rep.get("pm_target")
             with self._cast_params_once():
                 loss, logs = self._replay_loss(
                     rep["instr"], rep["valid"], rep["seq_len"],
@@ -988,7 +1114,9 @@ class Seq2SeqAgent(StreamMixin):
                     self._put_sobs(rep["final_sobs"]),
                     self._put(rep["rewards"]), self._put(rep["rl_masks"]),
                     self._put(rep["final_ended"]), rep["streams"],
-                    rep["noise"], *rep["weights"])
+                    rep["noise"], *rep["weights"],
+                    pm_target=(None if pm_target is None
+                               else self._put(pm_target)))
             loss.backward()
             for key, val in logs.items():
                 self.logs[key].append(val.detach())

@@ -28,10 +28,12 @@ there, tests/test_torch_stream.py holds the port to the JAX package):
 Only one device (``D = 1``): data parallel is its own slice.  selfTrain
 under stream does not stream: its relabelled passes fall back to the host
 act/replay pair (``Seq2SeqAgent.accumulate_gradient``), as in the JAX
-agent.  Not ported (ROADMAP.md): the mesh window (``_stream_shard_map``),
-``precompile_stream`` (JAX AOT; eager torch compiles nothing) and the
-auxiliary loss heads.  ``stream_unroll`` is a ``lax.scan`` codegen knob
-with no effect here.
+agent.  Not ported (ROADMAP.md): the mesh window (``_stream_shard_map``)
+and ``precompile_stream`` (JAX AOT; eager torch compiles nothing).
+``stream_unroll`` is a ``lax.scan`` codegen knob with no effect here.  The
+auxiliary loss terms (back head, progress monitor, agent_advanced's
+progress head, the MT agent's KL) ride the teacher half's ML loss, per
+episode like the rest of it (``dasa_tpu/agents/stream.py:454-562``).
 """
 
 from __future__ import annotations
@@ -192,7 +194,12 @@ class StreamMixin:
         the losses over the slot-time grid.  Returns (loss, logs,
         new_carry); the loss is None in ``eval_mode`` (inference: no
         dropout, no noise, the policy's action in every slot)."""
-        from dasa_tpu_torch.agents.seq2seq import _entropy, make_step_inputs
+        from dasa_tpu_torch.agents.seq2seq import (
+            _entropy,
+            back_ce,
+            make_step_inputs,
+            mt_kl_rows,
+        )
 
         cfg, policy = self.cfg, self.policy
         dev = self._device_env_tables()
@@ -230,6 +237,7 @@ class StreamMixin:
                                region[1][f]]) for f in RAW_FIELDS}
         goal_local_tab = table["goal"] - node_base_t[table["goal"]]
         total_dist_tab = dist_t[table["node0"], goal_local_tab]
+        pm_target_tab = 1.0 - total_dist_tab / (total_dist_tab + 1e-10)
 
         # ---- one batched text encode over every episode of the table;
         # the encoder's gradients come from every step of this window
@@ -249,14 +257,14 @@ class StreamMixin:
             percept = policy.percept_step(
                 {key: x[slot_ep] for key, x in cached_tab.items()},
                 valid_e, seqlen_e, inputs, lstm_kernel=self._lstm_kernel,
-                deterministic=eval_mode,
+                deterministic=eval_mode, is_test=eval_mode,
                 env_noise=noise[:, None, :] if use_noise else None, gen=gen)
-            new_state, logit, value, _aux = policy.decode_from_percept(
+            new_state, logit, value, aux = policy.decode_from_percept(
                 percept, valid_e, state, is_first,
                 deterministic=eval_mode, already_dropfeat=use_noise,
                 gen=gen)
             masked = logit.float().masked_fill(sobs["logit_mask"], NEG_INF)
-            return sobs, new_state, masked, value
+            return sobs, new_state, masked, value, aux
 
         slot_ep = slots.clone()
         alive, age = carry["alive"], carry["age"]
@@ -303,8 +311,8 @@ class StreamMixin:
             trunc = alive & (age >= T)
             real = alive & ~trunc
 
-            sobs, state, masked, value = forward(slot_ep, node, view, state,
-                                                 take, noise)
+            sobs, state, masked, value, aux = forward(slot_ep, node, view,
+                                                      state, take, noise)
             logp = torch.log_softmax(masked, dim=-1)
             if feedback == "sample":
                 a_pol = torch.multinomial(torch.softmax(masked.detach(), -1),
@@ -334,6 +342,22 @@ class StreamMixin:
                 put(ce=torch.where(real, ce, torch.zeros_like(ce)),
                     logp_a=logp.gather(1, a_rec[:, None])[:, 0],
                     ent=_entropy(logp, logp.exp()), value=value.float())
+                if cfg.pred_back:
+                    bce = back_ce(aux, sobs)
+                    put(back_ce=torch.where(real, bce, torch.zeros_like(bce)))
+                if cfg.pred_pm:
+                    put(pm_sq=(aux["pm_score"].float()
+                               - pm_target_tab[slot_ep]) ** 2)
+                if cfg.agent_type == "advanced":
+                    put(adv_sq=(aux["pred_progress"].float()
+                                - pm_target_tab[slot_ep]) ** 2)
+                if cfg.agent_type == "mt":
+                    # the teacher half's live rows; a per-step local mean
+                    kl_row, cnt_row = mt_kl_rows(
+                        logp, sobs["teacher"], sobs["cand_point_id"],
+                        sobs["cand_n"],
+                        real & ml_rows & (sobs["teacher"] < sobs["cand_n"]))
+                    put(kl=kl_row.sum() / cnt_row.sum().clamp(min=1.0))
             if record:
                 put(rec_action=a_rec, rec_node=node, rec_view=view,
                     rec_uid=table["uid"][slot_ep], rec_take=take)
@@ -368,8 +392,8 @@ class StreamMixin:
             # ---- window-edge bootstrap: the critic's value for slots
             # still mid-flight (a constant of the loss)
             with torch.no_grad():
-                _, _, _, v_edge = forward(slot_ep, node, view, state,
-                                          torch.zeros_like(alive), noise)
+                _, _, _, v_edge, _ = forward(slot_ep, node, view, state,
+                                             torch.zeros_like(alive), noise)
             g_init = torch.where(alive, v_edge.float(), 0.0)
             alive = alive & (age < T)
 
@@ -377,7 +401,26 @@ class StreamMixin:
             mlm = (grid["real"] & ml_rows).float()
             rlm = (grid["real"] & is_sample).float()
             forth_loss = (grid["ce"] * mlm).sum()
-            loss = ml_w * forth_loss / n_ml
+            ml_loss = forth_loss
+            if cfg.pred_back:
+                back_total = cfg.back_weight * (grid["back_ce"] * mlm).sum()
+                ml_loss = ml_loss + back_total
+                logs["back_loss"] = back_total / n_ml
+            if cfg.pred_pm:
+                # per episode, as the rest of the window's ML loss (the
+                # episodic passes take a per-step batch mean)
+                pm_total = cfg.pm_weight * (grid["pm_sq"] * mlm).sum()
+                ml_loss = ml_loss + pm_total
+                logs["pm_loss"] = pm_total / n_ml
+            if cfg.agent_type == "advanced":
+                adv = (grid["adv_sq"] * mlm).sum()
+                ml_loss = ml_loss + 10.0 * adv
+                logs["pm_loss"] = adv / n_ml
+            if cfg.agent_type == "mt":
+                kl_total = grid["kl"].sum()
+                ml_loss = ml_loss + kl_total
+                logs["kl_loss"] = kl_total / n_ml
+            loss = ml_w * ml_loss / n_ml
             G = stream_returns(grid["reward"], grid["value"], grid["done"],
                                grid["trunc"], grid["real"], g_init,
                                cfg.gamma)
@@ -396,7 +439,7 @@ class StreamMixin:
             loss = loss + rl_w * rl_loss
             logs.update(forth_loss=forth_loss,
                         entropy=(grid["ent"] * rlm).sum(),
-                        ml_loss=forth_loss / n_ml, rl_loss=rl_w * rl_loss,
+                        ml_loss=ml_loss / n_ml, rl_loss=rl_w * rl_loss,
                         critic_loss=rl_w * critic, total=total, loss=loss)
 
         # ---- the next window's carry, detached (truncated BPTT)
@@ -583,8 +626,10 @@ class StreamMixin:
         # estimates the mean episode length without a sync per window
         self.logs["stream_consumed"].append(logs["consumed"])
         for key in ("forth_loss", "entropy", "ml_loss", "rl_loss",
-                    "critic_loss", "total", "loss"):
-            self.logs[key].append(logs[key].detach())
+                    "critic_loss", "total", "loss", "back_loss", "pm_loss",
+                    "kl_loss"):
+            if key in logs:
+                self.logs[key].append(logs[key].detach())
         self.losses.append(loss.detach())
 
     # ------------------------------------------------------------------

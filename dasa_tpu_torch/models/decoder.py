@@ -6,8 +6,7 @@ Counterpart of ``BAttnDecoderLSTM`` and ``Critic`` in
 (``drop_visual``) and ``already_dropfeat`` follow the JAX modules; every
 ``forward`` takes the dropout generator ``gen`` (None = no dropout).  The
 JAX decoder's ``input_noise`` / ``output_noise`` inputs, which no agent
-path passes, are left out; the back-logit and progress-monitor heads and
-the DyReLU candidate path raise until their slice (ROADMAP.md).
+path passes, are left out.
 """
 
 from __future__ import annotations
@@ -59,29 +58,42 @@ class BAttnDecoderLSTM(nn.Module):
     previous action, attend over the (shift-smoothed) panorama, LSTMCell,
     attend over the instruction ctx, then score the candidates.
     ``dropout_ratio`` is ``cfg.dropout`` and ``featdropout`` the visual
-    feature dropout (``dasa_tpu/models/decoder.py:53-217``)."""
+    feature dropout (``dasa_tpu/models/decoder.py:53-217``).  Heads:
+    ``pred_back`` scores the candidates again for the back-translation
+    target from the previous hidden state (``back_input="pre"``) or the
+    dropped h_tilde (``"cur"``), ``aux["back_logit"]``; ``pred_pm``
+    regresses the progress from the instruction attention
+    (:meth:`_pm_score`), ``aux["pm_score"]``; ``use_dyrelu`` passes the
+    candidates' visual channels through a DyReLU conditioned on the
+    max-pooled panorama (model.py:1713-1817).  ``aux["alpha"]`` is the
+    instruction attention."""
 
     def __init__(self, embedding_size: int, hidden_size: int,
                  feature_size: int, angle_feat_size: int, ctx_dim: int,
                  use_shift: bool = False, shift_kernel_size: int = 3,
-                 pred_back: bool = False, use_dyrelu: bool = False,
-                 pred_pm: bool = False, use_kernel: bool = False,
-                 compute_dtype=torch.float32, dropout_ratio: float = 0.0,
-                 featdropout: float = 0.0):
+                 pred_back: bool = False, back_input: str = "pre",
+                 use_dyrelu: bool = False, pred_pm: bool = False,
+                 pm_type: str = "att", max_input: int = 80,
+                 use_kernel: bool = False, compute_dtype=torch.float32,
+                 dropout_ratio: float = 0.0, featdropout: float = 0.0):
         super().__init__()
-        if pred_back or use_dyrelu or pred_pm:
-            raise NotImplementedError(
-                "BAttnDecoderLSTM: pred_back, pred_pm and the dyrelu "
-                "decoder come with the variants slice (ROADMAP.md)")
         self.compute_dtype = compute_dtype
         self.angle_feat_size = angle_feat_size
         self.dropout_ratio = dropout_ratio
         self.featdropout = featdropout
+        self.back_input = back_input
+        self.pm_type = pm_type
+        self.max_input = max_input
         kw = dict(compute_dtype=compute_dtype)
         self.embedding = nn.Sequential(
             Dense(angle_feat_size, embedding_size, **kw), nn.Tanh())
         self.lstm = LstmCell(hidden_size, embedding_size + feature_size,
                              compute_dtype)
+        if use_dyrelu:
+            from dasa_tpu_torch.models.variants import lang_dyrelu_c
+
+            visual = feature_size - angle_feat_size
+            self.dyrelu1 = lang_dyrelu_c(visual, visual, **kw)
         if use_shift:
             self.feat_att_layer = ShiftSoftDotAttention(
                 hidden_size, feature_size, shift_kernel_size, use_kernel,
@@ -92,6 +104,44 @@ class BAttnDecoderLSTM(nn.Module):
         self.attention_layer = SoftDotAttention(hidden_size, ctx_dim, **kw)
         self.candidate_att_layer = SoftDotAttention(
             hidden_size, feature_size, with_tilde=False, **kw)
+        if pred_back:
+            self.back_candidate_att_layer = SoftDotAttention(
+                hidden_size, feature_size, with_tilde=False, **kw)
+        if pred_pm:
+            with_hid = pm_type in ("att_hid", "plain_att_hid")
+            self.pm_critic = Dense(max_input + (hidden_size if with_hid
+                                                else 0), 1, **kw)
+
+    def _pm_score(self, alpha, ctx_mask, h_tilde_drop):
+        """Progress-monitor score (model.py:533-553,
+        ``dasa_tpu/models/decoder.py:118``).  For ``att`` / ``att_hid`` each
+        row's valid prefix of the instruction attention is resampled
+        linearly (align corners) to the full width and renormalized;
+        ``plain_att*`` takes the raw padded attention.  Zero-padded to
+        ``max_input`` columns; the ``*_hid`` types append the dropped
+        h_tilde.  Returns sigmoid(pm_critic(.)) (B,)."""
+        dt = self.compute_dtype
+        length = alpha.shape[1]
+        alpha = alpha.to(dt)
+        if self.pm_type in ("att", "att_hid"):
+            attw = alpha
+            if ctx_mask is not None:
+                ln = (~ctx_mask).sum(-1).clamp(min=2).to(dt)
+                pos = (torch.arange(length, dtype=dt, device=alpha.device)
+                       [None, :] * (ln[:, None] - 1.0) / max(length - 1, 1))
+                lo = torch.floor(pos).long()
+                hi = (lo + 1).clamp(max=length - 1)
+                frac = (pos - lo).to(dt)
+                attw = (alpha.gather(1, lo) * (1.0 - frac)
+                        + alpha.gather(1, hi) * frac)
+            attw = attw / (attw.sum(-1, keepdim=True) + 1e-10)
+        else:
+            attw = alpha
+        if length < self.max_input:
+            attw = nn.functional.pad(attw, (0, self.max_input - length))
+        if self.pm_type in ("att_hid", "plain_att_hid"):
+            attw = torch.cat([attw, h_tilde_drop.to(dt)], dim=-1)
+        return torch.sigmoid(self.pm_critic(attw))[:, 0]
 
     def forward(self, action, feature, cand_feat, prev_h1, c_0, ctx,
                 ctx_mask=None, gen=None, already_dropfeat: bool = False
@@ -104,6 +154,7 @@ class BAttnDecoderLSTM(nn.Module):
         Returns (h_1, c_1, logit, h_tilde, aux)."""
         dt = self.compute_dtype
         rate, feat_rate = self.dropout_ratio, self.featdropout
+        aux: Dict[str, torch.Tensor] = {}
         action_embeds = dropout(self.embedding(action.to(dt)), rate, gen)
         if not already_dropfeat:
             feature = drop_visual(feature, self.angle_feat_size, feat_rate,
@@ -114,10 +165,24 @@ class BAttnDecoderLSTM(nn.Module):
         h_1, c_1 = self.lstm((prev_h1.to(dt), c_0.to(dt)), concat_input)
         h_tilde, alpha = self.attention_layer(dropout(h_1, rate, gen), ctx,
                                               ctx_mask)
+        h_tilde_drop = dropout(h_tilde, rate, gen)
+        if hasattr(self, "pm_critic"):
+            aux["pm_score"] = self._pm_score(alpha, ctx_mask, h_tilde_drop)
         if not already_dropfeat:
             cand_feat = drop_visual(cand_feat, self.angle_feat_size,
                                     feat_rate, gen)
-        _, logit = self.candidate_att_layer(dropout(h_tilde, rate, gen),
-                                            cand_feat, output_tilde=False,
+        if hasattr(self, "dyrelu1"):
+            a = self.angle_feat_size
+            max_feat = feature[..., :-a].to(dt).amax(dim=1)
+            cand_view = self.dyrelu1(cand_feat[..., :-a].to(dt), max_feat)
+            cand_feat = torch.cat([cand_view, cand_feat[..., -a:].to(dt)],
+                                  dim=-1)
+        _, logit = self.candidate_att_layer(h_tilde_drop, cand_feat,
+                                            output_tilde=False,
                                             output_prob=False)
-        return h_1, c_1, logit, h_tilde, {"alpha": alpha}
+        if hasattr(self, "back_candidate_att_layer"):
+            back_q = prev_h1 if self.back_input == "pre" else h_tilde_drop
+            _, aux["back_logit"] = self.back_candidate_att_layer(
+                back_q, cand_feat, output_tilde=False, output_prob=False)
+        aux["alpha"] = alpha
+        return h_1, c_1, logit, h_tilde, aux

@@ -5,9 +5,7 @@ r2r_src/model.py:16-353).  Parameters are f32 and named as the
 reference's torch ``state_dict``; each layer computes in its
 ``compute_dtype`` (flax's ``Dense(dtype=...)`` rule: inputs, weights and
 biases are cast first).  Dropout takes an explicit ``torch.Generator``: no
-generator means no dropout (flax's ``deterministic=True``).  Only the
-layers the listener slices run are here; ``LSTM`` (unidirectional),
-``MLP`` and ``scaled_dot_attention`` come with later slices (ROADMAP.md).
+generator means no dropout (flax's ``deterministic=True``).
 """
 
 from __future__ import annotations
@@ -19,27 +17,32 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from dasa_tpu_torch.ops.lstm import bilstm_scan_fn
+from dasa_tpu_torch.ops.lstm import bilstm_scan_fn, lstm_scan_fn
 from dasa_tpu_torch.ops.shift_attention import shift_attend_fn
 
 NEG_INF = -1e9  # softmax mask value (finite to keep grads NaN-free)
 
 
+def uniform(shape, gen, device) -> torch.Tensor:
+    """f32 draws from U[0, 1) of ``shape``.  ``gen`` is a generator or a
+    list of generators, one per equal block of the leading rows: a batch
+    of several steps' rows then draws each step's block as that step alone
+    would (the host replay's batched percepts)."""
+    if isinstance(gen, torch.Generator):
+        return torch.rand(shape, generator=gen, device=device)
+    block = (shape[0] // len(gen), *shape[1:])
+    return torch.cat([torch.rand(block, generator=g, device=device)
+                      for g in gen])
+
+
 def dropout(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
     """Inverted dropout drawing its mask from ``gen`` (flax ``nn.Dropout``:
     keep with probability 1 - rate, scale kept values by 1 / (1 - rate)).
-    ``gen`` None or ``rate`` 0 is the identity.  ``gen`` may also be a
-    list of generators, one per equal block of ``x``'s leading rows: a
-    batch of several steps' rows then draws each step's mask as that step
-    alone would (the host replay's batched percepts)."""
+    ``gen`` None or ``rate`` 0 is the identity; a list of generators draws
+    per block of rows (:func:`uniform`)."""
     if gen is None or rate == 0.0:
         return x
-    if isinstance(gen, torch.Generator):
-        u = torch.rand(x.shape, generator=gen, device=x.device)
-    else:
-        block = (x.shape[0] // len(gen), *x.shape[1:])
-        u = torch.cat([torch.rand(block, generator=g, device=x.device)
-                       for g in gen])
+    u = uniform(x.shape, gen, x.device)
     return torch.where(u >= rate, x / (1.0 - rate), 0.0)
 
 
@@ -157,6 +160,74 @@ class LstmCell(nn.Module):
         new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         new_h = torch.sigmoid(o) * torch.tanh(new_c)
         return new_h, new_c
+
+
+class LSTM(nn.Module):
+    """Masked unidirectional LSTM over (B, T, D) with torch ``nn.LSTM``
+    naming (``weight_ih_l0``, ...; ``bias_hh_l0`` zero and frozen,
+    :func:`_fold_bias_`).  ``mask`` is True at valid tokens; a masked token
+    passes the carry on and emits zeros, so the final carry is the state
+    at each row's last valid token (run ``reverse``, at its first).
+
+    ``kernel=True`` runs the recurrence through ``ops.lstm.LstmScanFn``
+    (f32 carry; K1 forward and K2 backward on the card), as
+    ``dasa_tpu/models/layers.py:108-121`` routes to its Pallas kernel;
+    otherwise the plain token loop, whose carry stays in the compute
+    dtype."""
+
+    def __init__(self, features: int, in_features: int,
+                 reverse: bool = False, compute_dtype=torch.float32):
+        super().__init__()
+        self.features = features
+        self.reverse = reverse
+        self.compute_dtype = compute_dtype
+        k = 1.0 / math.sqrt(features)
+        for name, shape in (("weight_ih", (4 * features, in_features)),
+                            ("weight_hh", (4 * features, features)),
+                            ("bias_ih", (4 * features,)),
+                            ("bias_hh", (4 * features,))):
+            p = nn.Parameter(torch.empty(*shape))
+            _uniform_(p, k)
+            self.register_parameter(f"{name}_l0", p)
+        _fold_bias_(self.bias_ih_l0, self.bias_hh_l0)
+
+    def forward(self, x, mask, init_carry=None, kernel: bool = False):
+        dt = self.compute_dtype
+        x = x.to(dt)
+        batch = x.shape[0]
+        if init_carry is None:
+            zeros = torch.zeros(batch, self.features, dtype=dt,
+                                device=x.device)
+            init_carry = (zeros, zeros)
+        if self.reverse:
+            x, mask = x.flip(1), mask.flip(1)
+        wh = cast_param(self.weight_hh_l0, dt)
+        b = (self.bias_ih_l0 + self.bias_hh_l0).to(dt)
+        xw = x @ cast_param(self.weight_ih_l0, dt).t()          # (B,T,4H)
+        h, c = init_carry
+        if kernel:
+            m = mask.transpose(0, 1).to(dt)                      # (T,B)
+            h_seq, c_seq = lstm_scan_fn((xw + b).transpose(0, 1), m, h, c,
+                                        wh.t())
+            ys = (h_seq * m[..., None]).transpose(0, 1)
+            carry = (h_seq[-1], c_seq[-1])
+        else:
+            ys = []
+            for t in range(x.shape[1]):
+                gates = xw[:, t] + h.to(dt) @ wh.t() + b
+                i, f, g, o = gates.chunk(4, dim=-1)
+                new_c = (torch.sigmoid(f) * c
+                         + torch.sigmoid(i) * torch.tanh(g))
+                new_h = torch.sigmoid(o) * torch.tanh(new_c)
+                m = mask[:, t, None].to(new_h.dtype)
+                h = m * new_h + (1 - m) * h
+                c = m * new_c + (1 - m) * c
+                ys.append(new_h * m)
+            ys = torch.stack(ys, 1)
+            carry = (h, c)
+        if self.reverse:
+            ys = ys.flip(1)
+        return ys, carry
 
 
 class BiLSTM(nn.Module):
@@ -343,3 +414,36 @@ class ShiftSoftDotAttention(nn.Module):
                 torch.cat([weighted, h], dim=-1)))
             return h_tilde, attn_out
         return weighted, attn_out
+
+
+def scaled_dot_attention(value, key, query, mask=None,
+                         output_prob: bool = True):
+    """Single-head scaled dot-product attention with a (B, D) or
+    (B, Lq, D) query (reference utils.py:627-657,
+    ``dasa_tpu/models/layers.py:338``); ``mask`` True = masked.  Returns
+    (attended, attn-or-scores) squeezed back to the query's rank.  As in
+    the reference, ``output_prob=False`` weights the values by the RAW
+    scores too."""
+    squeeze = query.dim() == 2
+    if squeeze:
+        query = query[:, None, :]
+    scores = query @ key.transpose(1, 2) / math.sqrt(query.shape[-1])
+    if mask is not None:
+        scores = scores.masked_fill(mask, NEG_INF)
+    out_map = torch.softmax(scores, dim=-1) if output_prob else scores
+    result = out_map @ value
+    if squeeze:
+        return result[:, 0], out_map[:, 0]
+    return result, out_map
+
+
+class MLP(nn.Sequential):
+    """Linear-ReLU-Linear (agent_dg.py:1550-1562,
+    ``dasa_tpu/models/layers.py:360``); the JAX module's ``Dense_0`` and
+    ``Dense_1`` are ``0`` and ``2``."""
+
+    def __init__(self, in_dim: int, latent_dim: int, out_dim: int,
+                 compute_dtype=torch.float32):
+        kw = dict(compute_dtype=compute_dtype)
+        super().__init__(Dense(in_dim, latent_dim, **kw), nn.ReLU(),
+                         Dense(latent_dim, out_dim, **kw))

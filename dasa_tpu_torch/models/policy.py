@@ -2,8 +2,9 @@
 
 Counterpart of ``dasa_tpu/models/policy.py`` (reference
 r2r_src/agent_dg.py:102-260): one ``nn.Module`` owning the Dic encoder,
-the BAttn decoder, the critic and the AdaIN module, exposed as per-step
-methods.  The kernel switch keeps the JAX package's meaning:
+the decoder (BAttn with its heads, or the double / advanced / kvmem /
+new / mutan / mt agents' decoders), the critic and the AdaIN module,
+exposed as per-step methods.  The kernel switch keeps the JAX package's meaning:
 ``use_pallas="always"`` routes the AdaIN gate and the shift attention
 through their CUDA kernels (the top BiLSTM's routing is the agent's
 ``lstm_kernel`` argument, on under ``auto`` and ``always``).
@@ -12,14 +13,16 @@ Step dataflow (agent_dg.py:725-936): gather pano + candidates -> env-drop
 noise (before or after AdaIN) -> AdaIN channel modulation -> cross-modal
 encoder (with the per-episode cached text stack) -> decoder step ->
 candidate logits.  ``deterministic=False`` turns dropout on; its masks
-come from the caller's ``torch.Generator`` ``gen``.  The JAX methods'
-``is_test`` flag switches only the gumbel-sigmoid AdaIN gate, which is
-not ported (the variants slice), so it does not appear here.
+come from the caller's ``torch.Generator`` ``gen``.  ``is_test`` switches
+the gumbel-sigmoid AdaIN gate to its threshold; out of test, its uniform
+noise comes from ``gen`` too (``gumbel_u(shape)`` replaces the draw, for
+tests).  The plain, legacy and mcatt encoders raise until their slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -30,8 +33,18 @@ from dasa_tpu_torch.models.adain import (
     make_adain,
 )
 from dasa_tpu_torch.models.bert import BertConfig
+from dasa_tpu_torch.models import variants
 from dasa_tpu_torch.models.decoder import BAttnDecoderLSTM, Critic
 from dasa_tpu_torch.models.encoder import DicEncoder
+from dasa_tpu_torch.models.layers import uniform
+
+# the agent types whose decoder replaces the BAttn decoder
+# (``dasa_tpu/models/policy.py:200-226``)
+VARIANT_DECODERS = {"advanced": variants.AdvancedDecoderLSTM,
+                    "kvmem": variants.KVMemAttnDecoderLSTM,
+                    "new": variants.NewAttnDecoderLSTM,
+                    "mutan": variants.MutanAttnDecoderLSTM}
+AGENT_TYPES = ("default", "dg", "double", "mt", *VARIANT_DECODERS)
 
 
 class StepInputs(NamedTuple):
@@ -43,6 +56,9 @@ class StepInputs(NamedTuple):
     cand_feat: torch.Tensor     # (B, K, F)
     cand_dfeat: torch.Tensor    # (B, K, F)
     cand_mask: torch.Tensor     # (B, K) True = masked (pad beyond STOP)
+    cand_idx: Optional[torch.Tensor] = None  # (B, K) view-token index
+                                # per candidate (STOP slot = views); the
+                                # MT decoder's
 
 
 class DecoderState(NamedTuple):
@@ -63,10 +79,9 @@ def _dropout_gen(deterministic: bool, gen):
 
 
 def decoder_state_width(cfg: Config) -> int:
-    """Width of the DecoderState arrays: the decoder hidden size of the
-    Dic / BAttn policy (the double and mcatt agents, which pack other
-    widths, come with the variants slice)."""
-    return cfg.d_hidden_size
+    """Width of the DecoderState arrays: the decoder hidden size; the
+    double agent carries its two decoder streams packed side by side."""
+    return cfg.d_hidden_size * (2 if cfg.agent_type == "double" else 1)
 
 
 def bert_config_from(cfg: Config) -> BertConfig:
@@ -85,17 +100,19 @@ def bert_config_from(cfg: Config) -> BertConfig:
 
 
 class DasaPolicy(nn.Module):
-    """The Dic / BAttnDecoderLSTM / DGAdaChannel policy.  Other encoder
-    and agent types raise until their slice (ROADMAP.md)."""
+    """The Dic cross-modal policy: every agent type of
+    :data:`AGENT_TYPES`, every AdaIN type and the BAttn heads.  The plain,
+    legacy and mcatt encoders raise until their slice (ROADMAP.md)."""
 
     def __init__(self, cfg: Config, compute_dtype=torch.float32):
         super().__init__()
-        if cfg.encoder_type != "Dic" or cfg.agent_type not in ("default",
-                                                               "dg"):
+        if cfg.encoder_type != "Dic" or cfg.agent_type not in AGENT_TYPES:
             raise NotImplementedError(
                 f"DasaPolicy: encoder_type={cfg.encoder_type!r}, "
-                f"agent_type={cfg.agent_type!r} — only the Dic encoder with "
-                "the default BAttn decoder is ported (ROADMAP.md, variants)")
+                f"agent_type={cfg.agent_type!r} — only the Dic cross-modal "
+                "encoder with the agent types "
+                f"{', '.join(AGENT_TYPES)} is ported; the plain, legacy and "
+                "mcatt encoders come with a later slice (ROADMAP.md)")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         use_kernel = cfg.use_pallas == "always"
@@ -104,23 +121,55 @@ class DasaPolicy(nn.Module):
             bert_config_from(cfg), cfg.d_enc_hidden_size, cfg.d_hidden_size,
             bidirectional=cfg.d_bidirectional,
             reverse_input=cfg.d_reverse_input, top_lstm=cfg.d_top_lstm,
-            ctx_v=cfg.ctx_v, dropout_ratio=cfg.d_dropout_ratio, **kw)
+            ctx_v=cfg.ctx_v, ctx_v_dim=cfg.feature_all_size,
+            dropout_ratio=cfg.d_dropout_ratio, **kw)
         num_dir = 2 if cfg.d_bidirectional else 1
         ctx_dim = (cfg.d_enc_hidden_size * num_dir if cfg.d_top_lstm
                    else cfg.bert_hidden_size)
-        self.decoder = BAttnDecoderLSTM(
-            cfg.aemb, cfg.d_hidden_size, cfg.feature_all_size,
-            cfg.angle_feat_size, ctx_dim, use_shift=cfg.use_shift,
-            shift_kernel_size=cfg.shift_kernel_size,
-            pred_back=cfg.pred_back,
-            use_dyrelu=cfg.decoder_type == "dyrelu", pred_pm=cfg.pred_pm,
-            use_kernel=use_kernel, dropout_ratio=cfg.dropout,
-            featdropout=cfg.featdropout, **kw)
-        self.critic = Critic(cfg.d_hidden_size, cfg.critic_dim, cfg.dropout,
-                             **kw)
+        args = (cfg.aemb, cfg.d_hidden_size, cfg.feature_all_size,
+                cfg.angle_feat_size, ctx_dim)
+        kw.update(dropout_ratio=cfg.dropout, featdropout=cfg.featdropout)
+        agent = cfg.agent_type
+        if agent == "double":
+            self.decoder = variants.DoubleBAttnDecoderLSTM(*args, **kw)
+        elif agent == "mt":
+            self.decoder = variants.MTDecoder(
+                *args, vemb_dim=cfg.bert_hidden_size, **kw)
+        elif agent in VARIANT_DECODERS:
+            # the JAX policy passes pred_back to advanced, kvmem and new
+            # only (``dasa_tpu/models/policy.py:214-222``)
+            back = cfg.pred_back and agent != "mutan"
+            self.decoder = VARIANT_DECODERS[agent](
+                *args, pred_back=back, max_input=cfg.max_input, **kw)
+        else:
+            self.decoder = BAttnDecoderLSTM(
+                *args, use_shift=cfg.use_shift,
+                shift_kernel_size=cfg.shift_kernel_size,
+                pred_back=cfg.pred_back, back_input=cfg.back_input,
+                use_dyrelu=cfg.decoder_type == "dyrelu", pred_pm=cfg.pred_pm,
+                pm_type=cfg.pm_type, max_input=cfg.max_input,
+                use_kernel=use_kernel, **kw)
+        self._check_heads(cfg)
+        self.critic = Critic(decoder_state_width(cfg), cfg.critic_dim,
+                             cfg.dropout, compute_dtype=compute_dtype)
         self.adain = make_adain(cfg.adain_type, cfg.feature_size,
                                 cfg.ab_type, cfg.a_type, compute_dtype,
                                 use_kernel=use_kernel)
+
+    def _check_heads(self, cfg: Config) -> None:
+        """The loss terms the config asks for need their decoder's heads:
+        only the BAttn decoder has the progress monitor, and the mutan,
+        mt and double decoders no back head (the JAX agent fails at its
+        first training step there)."""
+        battn = isinstance(self.decoder, BAttnDecoderLSTM)
+        missing = [name for name, want, has in (
+            ("pred_back", cfg.pred_back,
+             hasattr(self.decoder, "back_candidate_att_layer")),
+            ("pred_pm", cfg.pred_pm, battn)) if want and not has]
+        if missing:
+            raise ValueError(
+                f"agent_type={cfg.agent_type!r}: its decoder has no head "
+                f"for {', '.join(missing)}")
 
     # ---- episode-level ----
     def encode_text(self, instr, valid_mask, seq_len, *,
@@ -139,12 +188,19 @@ class DasaPolicy(nn.Module):
             f_t_all=f_t if self.cfg.include_vision else None,
             lstm_kernel=lstm_kernel, gen=gen)
 
-    def apply_adain(self, inputs: StepInputs) -> StepInputs:
+    def apply_adain(self, inputs: StepInputs, is_test: bool = True,
+                    gen=None,
+                    gumbel_u: Optional[Callable] = None) -> StepInputs:
         """Depth-guided modulation of the pano/candidate visual channels;
-        dispatch mirrors vl_rollout (agent_dg.py:742-777)."""
+        dispatch mirrors vl_rollout (agent_dg.py:742-777,
+        ``dasa_tpu/models/policy.py:288-333``).  Out of test, the
+        gumbel-sigmoid gate's uniform noise is ``gumbel_u(shape)`` or drawn
+        from ``gen``."""
         cfg = self.cfg
         a = cfg.angle_feat_size
         if cfg.adain_type == "none":
+            if cfg.agent_type == "double":
+                return inputs  # double keeps raw depth in the d_t slot
             # the decoder reads the rgb pano when AdaIN is off
             return inputs._replace(d_t=inputs.f_t,
                                    cand_dfeat=inputs.cand_feat)
@@ -153,23 +209,71 @@ class DasaPolicy(nn.Module):
         c_vis, c_ang = inputs.cand_feat[..., :-a], inputs.cand_feat[..., -a:]
         cd_vis = inputs.cand_dfeat[..., :-a]
 
+        def noise(shape):
+            if gumbel_u is not None:
+                return gumbel_u(shape)
+            if gen is None:
+                raise ValueError("the gumbel-sigmoid gate out of test needs "
+                                 "a generator for its noise")
+            return uniform(shape, gen, f_vis.device)
+
         def mod(content, style):
             if cfg.adain_type == "default":
                 return adaptive_instance_normalization(content, style)
-            return self.adain(content, style)
+            return self.adain(content, style, is_test=is_test, noise=noise)
 
-        if cfg.adain_type == "rgb_channel":
+        kind = cfg.adain_type
+        if kind in ("rgb_stat_channel", "rgb_meanchannel"):
+            df_vis, cand_vis = mod(f_vis, f_vis), mod(c_vis, f_vis)
+        elif kind == "rgb_channel":
             df_vis, cand_vis = mod(f_vis, f_vis), mod(c_vis, c_vis)
-        else:  # channel | default
+        elif kind == "depth_stat_channel":
+            df_vis, cand_vis = mod(f_vis, d_vis), mod(c_vis, d_vis)
+        elif kind in ("channel", "coco_channel", "default"):
             df_vis, cand_vis = mod(f_vis, d_vis), mod(c_vis, cd_vis)
-        # "channel" writes the modulated pano into df_t (the decoder's
-        # pano input) and keeps f_t for the encoder (agent_dg.py:764-768);
-        # "default" overwrites f_t itself
+        elif kind == "meanchannel":
+            df_vis, cand_vis = mod(f_vis, d_vis), mod(c_vis, f_vis)
+        else:
+            raise ValueError(f"adain_type={kind!r}")
+        # the "channel" family writes the modulated pano into df_t (the
+        # decoder's pano input) and keeps f_t for the encoder
+        # (agent_dg.py:764-768); "default" overwrites f_t itself
         df_t = torch.cat([df_vis, f_ang.to(df_vis.dtype)], dim=-1)
         cand = torch.cat([cand_vis, c_ang.to(cand_vis.dtype)], dim=-1)
-        if cfg.adain_type == "default":
+        if kind == "default":
             return inputs._replace(f_t=df_t, cand_feat=cand)
         return inputs._replace(d_t=df_t, cand_feat=cand)
+
+    def decode_step(self, inputs: StepInputs, state: DecoderState, ctx,
+                    ctx_mask, *, gen=None, already_dropfeat: bool = False,
+                    v_emb=None):
+        """One decoder step over the (AdaIN'd) pano df_t (in the d_t slot)
+        and the candidates (``dasa_tpu/models/policy.py:335-370``); the
+        double agent's two streams ride side by side in the state."""
+        agent = self.cfg.agent_type
+        if agent == "mt":
+            h, c, logit, h1, aux = self.decoder(
+                inputs.action_feat, inputs.d_t, inputs.cand_feat, state.h1,
+                state.c, ctx, ctx_mask, gen=gen,
+                already_dropfeat=already_dropfeat, v_emb=v_emb,
+                cand_idx=inputs.cand_idx)
+            return DecoderState(h, c, h1), logit, aux
+        if agent == "double":
+            half = self.cfg.d_hidden_size
+            (h, c, h1), (hd, cd, h1d), logit, aux = self.decoder(
+                inputs.action_feat, inputs.f_t, inputs.d_t,
+                inputs.cand_feat, inputs.cand_dfeat,
+                state.h1[:, :half], state.c[:, :half],
+                state.h1[:, half:], state.c[:, half:], ctx, ctx_mask,
+                gen=gen, already_dropfeat=already_dropfeat)
+            return DecoderState(torch.cat([h, hd], -1),
+                                torch.cat([c, cd], -1),
+                                torch.cat([h1, h1d], -1)), logit, aux
+        h, c, logit, h1, aux = self.decoder(
+            inputs.action_feat, inputs.d_t, inputs.cand_feat, state.h1,
+            state.c, ctx, ctx_mask, gen=gen,
+            already_dropfeat=already_dropfeat)
+        return DecoderState(h, c, h1), logit, aux
 
     def _apply_env_noise(self, inputs: StepInputs, env_noise) -> StepInputs:
         """Multiply the visual channels by the shared per-rollout noise
@@ -192,30 +296,43 @@ class DasaPolicy(nn.Module):
 
     def percept_step(self, cached: Dict, valid_mask, seq_len,
                      inputs: StepInputs, lstm_kernel: bool = False, *,
-                     deterministic: bool = True, env_noise=None,
-                     gen=None) -> Dict:
+                     deterministic: bool = True, is_test: bool = True,
+                     env_noise=None, gen=None,
+                     gumbel_u: Optional[Callable] = None) -> Dict:
         """The decoder-state-independent part of one step: env-drop ->
         AdaIN -> cross-modal encoder (vl_rollout, agent_dg.py:725-797).
         ``env_noise`` (F,) is the shared feature-drop mask, applied before
-        or after AdaIN as ``env_drop_stage`` says."""
+        or after AdaIN as ``env_drop_stage`` says; ``is_test`` and
+        ``gumbel_u`` are :meth:`apply_adain`'s.  Returns the percept dict
+        (ctx, h0, c0, inputs, and the MT agent's v_emb)."""
         cfg = self.cfg
+        raw_gen = gen
         gen = _dropout_gen(deterministic, gen)
         if env_noise is not None and cfg.env_drop_stage == "before_adain":
             inputs = self._apply_env_noise(inputs, env_noise)
-        inputs = self.apply_adain(inputs)
+        inputs = self.apply_adain(inputs, is_test=is_test, gen=raw_gen,
+                                  gumbel_u=gumbel_u)
         if env_noise is not None and cfg.env_drop_stage == "after_adain":
             inputs = self._apply_env_noise(inputs, env_noise)
-        ctx, h0, c0, _ctx_v, _v_emb = self.encode_step(
+        ctx, h0, c0, ctx_v, v_emb = self.encode_step(
             cached, valid_mask, seq_len, inputs.f_t, lstm_kernel=lstm_kernel,
             gen=gen)
-        return {"ctx": ctx, "h0": h0, "c0": c0, "inputs": inputs}
+        if ctx_v is not None:
+            inputs = inputs._replace(d_t=inputs.d_t + ctx_v)
+        if cfg.agent_type == "double":
+            # both decoder streams start from the encoder state
+            h0, c0 = torch.cat([h0, h0], -1), torch.cat([c0, c0], -1)
+        percept = {"ctx": ctx, "h0": h0, "c0": c0, "inputs": inputs}
+        if cfg.agent_type == "mt":
+            percept["v_emb"] = v_emb
+        return percept
 
     def decode_from_percept(self, percept: Dict, valid_mask,
                             state: DecoderState, is_first, *,
                             deterministic: bool = True,
                             already_dropfeat: bool = False, gen=None):
         """The decoder-state-dependent tail of one step: state select at
-        t=0, decoder LSTM step, candidate logits, critic (vl_rollout,
+        t=0, decoder step, candidate logits, critic (vl_rollout,
         agent_dg.py:798-830).  ``already_dropfeat``: the env-drop noise
         has dropped the visual features, so the decoder skips its own
         featdropout."""
@@ -226,24 +343,23 @@ class DasaPolicy(nn.Module):
             h=first * h0 + (1 - first) * state.h,
             c=first * c0 + (1 - first) * state.c,
             h1=first * h0 + (1 - first) * state.h1)
-        inputs = percept["inputs"]
-        h, c, logit, h1, aux = self.decoder(
-            inputs.action_feat, inputs.d_t, inputs.cand_feat, state.h1,
-            state.c, percept["ctx"], ~valid_mask, gen=gen,
-            already_dropfeat=already_dropfeat)
-        state = DecoderState(h, c, h1)
+        state, logit, aux = self.decode_step(
+            percept["inputs"], state, percept["ctx"], ~valid_mask, gen=gen,
+            already_dropfeat=already_dropfeat, v_emb=percept.get("v_emb"))
         return state, logit, self.critic(state.h, gen), aux
 
     def policy_step(self, cached: Dict, valid_mask, seq_len,
                     inputs: StepInputs, state: DecoderState, is_first,
                     lstm_kernel: bool = False, *,
-                    deterministic: bool = True, env_noise=None, gen=None):
+                    deterministic: bool = True, is_test: bool = True,
+                    env_noise=None, gen=None):
         """The complete per-step forward: percept_step +
         decode_from_percept under one generator."""
         percept = self.percept_step(cached, valid_mask, seq_len, inputs,
                                     lstm_kernel=lstm_kernel,
                                     deterministic=deterministic,
-                                    env_noise=env_noise, gen=gen)
+                                    is_test=is_test, env_noise=env_noise,
+                                    gen=gen)
         return self.decode_from_percept(
             percept, valid_mask, state, is_first,
             deterministic=deterministic,

@@ -22,6 +22,7 @@ from torch import nn
 
 from dasa_tpu_torch.models.decoder import drop_visual
 from dasa_tpu_torch.models.layers import (
+    LSTM,
     BiLSTM,
     Dense,
     LstmCell,
@@ -32,8 +33,10 @@ from dasa_tpu_torch.models.layers import (
 
 
 class SpeakerEncoder(nn.Module):
-    """Both BiLSTMs run through ``ops.lstm.BiLstmScanFn`` (K1 forward, K2
-    backward on the card) when called with ``kernel=True``, else as the
+    """Two LSTMs over the path, bidirectional (``rnn_dim / 2`` a
+    direction) or, with ``bidirectional=False``, one direction of
+    ``rnn_dim``.  With ``kernel=True`` they run through ``ops.lstm``'s
+    autograd Functions (K1 forward, K2 backward on the card), else as the
     plain token loop."""
 
     def __init__(self, feature_size: int, hidden_size: int,
@@ -41,17 +44,19 @@ class SpeakerEncoder(nn.Module):
                  angle_feat_size: int, bidirectional: bool = True,
                  compute_dtype=torch.float32):
         super().__init__()
-        if not bidirectional:
-            raise NotImplementedError(
-                "SpeakerEncoder(bidirectional=False) needs the "
-                "unidirectional LSTM (ROADMAP.md section 1, item 5)")
         self.hidden_size = hidden_size
         self.dropout_ratio = dropout_ratio
         self.featdropout = featdropout
         self.angle_feat_size = angle_feat_size
-        per_dir = hidden_size // 2
-        self.lstm = BiLSTM(per_dir, feature_size, compute_dtype)
-        self.post_lstm = BiLSTM(per_dir, hidden_size, compute_dtype)
+        if bidirectional:
+            per_dir = hidden_size // 2
+            self.lstm = BiLSTM(per_dir, feature_size, compute_dtype)
+            self.post_lstm = BiLSTM(per_dir, hidden_size, compute_dtype)
+        else:
+            self.lstm = LSTM(hidden_size, feature_size,
+                             compute_dtype=compute_dtype)
+            self.post_lstm = LSTM(hidden_size, hidden_size,
+                                  compute_dtype=compute_dtype)
         self.attention_layer = SoftDotAttention(
             hidden_size, feature_size, compute_dtype=compute_dtype)
 

@@ -381,7 +381,12 @@ class LstmScanFn(torch.autograd.Function):
 
 
 def lstm_scan_fn(xw, mask, h0, c0, wh) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``LstmScanFn.apply``: the masked recurrence with gradients."""
+    """``LstmScanFn.apply``: the masked recurrence with gradients.  A pure
+    forward (grad mode off, or no input requiring grad) calls
+    :func:`lstm_scan` directly, as :func:`bilstm_scan_fn` does."""
+    if not (torch.is_grad_enabled()
+            and any(x.requires_grad for x in (xw, h0, c0, wh))):
+        return lstm_scan(xw, mask, h0, c0, wh)
     return LstmScanFn.apply(xw, mask, h0, c0, wh)
 
 

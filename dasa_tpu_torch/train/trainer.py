@@ -204,7 +204,8 @@ def train(cfg: Config, world: Optional[World] = None, device=None,
                     for key, vals in agent.logs.items()
                     if key != "stream_consumed"}
             total = max(sum(logs.get("total", [])), 1)
-            for tag in ("loss", "ml_loss", "forth_loss", "rl_loss"):
+            for tag in ("loss", "ml_loss", "forth_loss", "rl_loss",
+                        "back_loss", "pm_loss", "kl_loss"):
                 if logs.get(tag):
                     writer.add_scalar(f"loss/{tag}", float(np.mean(logs[tag])),
                                       it)

@@ -16,11 +16,15 @@ torch tensors.  Conventions, the inverse of
 - an LSTM cell's ``wi``/``wh`` (in, 4H) become ``weight_ih``/``weight_hh``
   (4H, in); its single bias ``b`` goes to ``bias_ih`` and zeros to
   ``bias_hh``; BiLSTM ``fwd_cell``/``bwd_cell`` are torch's ``_l0`` and
-  ``_l0_reverse``;
-- in the policy, ``lalayer_3`` is ``lalayer.3``; the decoder's
+  ``_l0_reverse``, a one-direction LSTM's ``LstmCell_0`` its ``_l0``;
+- a raw parameter (``a_csb``, ``kv``, ``v_stop_feat``, ...) keeps its
+  name;
+- in the policy, ``lalayer_3`` is ``lalayer.3``; a decoder's
   ``embedding`` is the reference Sequential's ``embedding.0``; the
   critic's ``Dense_0`` and ``Dense_1`` are ``state2value.0`` and
-  ``state2value.3``.  The speaker's names carry over unchanged;
+  ``state2value.3``, an MLP's (``a_fc_content``, ...) ``0`` and ``2``;
+  the Mutan fusion's ``linear_hv_3`` is ``list_linear_hv.3``.  The
+  speaker's names carry over unchanged;
 - in the pretraining models, the MLM head's ``transform`` and
   ``LayerNorm`` are HF ``BertOnlyMLMHead``'s
   ``predictions.transform.dense`` / ``.LayerNorm`` and its ``bias``
@@ -45,10 +49,19 @@ from torch import nn
 
 Path = Tuple[str, ...]
 
-_INDEXED = re.compile(r"^(lalayer|addlayer|vlayer)_(\d+)$")
+_INDEXED = re.compile(r"^(lalayer|addlayer|vlayer|linear_hv|linear_hq)_(\d+)$")
+_LISTS = {"linear_hv": "list_linear_hv", "linear_hq": "list_linear_hq"}
+_MLP = re.compile(r"_fc_(content|style|fuse)$")
+_MLP_LAYERS = {"Dense_0": "0", "Dense_1": "2"}
 _RENAME = {("decoder", "embedding"): ("decoder", "embedding", "0"),
+           ("decoder", "rgb_decoder", "embedding"):
+               ("decoder", "rgb_decoder", "embedding", "0"),
+           ("decoder", "depth_decoder", "embedding"):
+               ("decoder", "depth_decoder", "embedding", "0"),
            ("critic", "Dense_0"): ("critic", "state2value", "0"),
            ("critic", "Dense_1"): ("critic", "state2value", "3")}
+# parameters a JAX module declares itself (not a layer's kernel or bias)
+_RAW = ("a_csb", "b_csb", "kv", "v_stop_feat")
 # applied in order, each to the path the rules before it left
 _PRETRAIN_RENAME = {
     ("mlmhead",): ("mlmhead", "predictions"),
@@ -77,8 +90,14 @@ def _module_path(path: Path, renames: Mapping[Path, Path]) -> Path:
     for head, new in renames.items():
         if path[:len(head)] == head:
             path = new + path[len(head):]
-    return tuple(f"{m.group(1)}.{m.group(2)}" if (m := _INDEXED.match(p))
-                 else p for p in path)
+    out = []
+    for i, p in enumerate(path):
+        if (m := _INDEXED.match(p)):
+            p = f"{_LISTS.get(m.group(1), m.group(1))}.{m.group(2)}"
+        elif p in _MLP_LAYERS and i and _MLP.search(path[i - 1]):
+            p = _MLP_LAYERS[p]
+        out.append(p)
+    return tuple(out)
 
 
 def policy_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
@@ -131,8 +150,8 @@ def _state_dict_from_jax(params: Mapping, renames: Mapping[Path, Path]
     for path, val in flatten_params(tree).items():
         *mod, leaf = path
         val = _as_f32(val)
-        if mod[-1] in ("fwd_cell", "bwd_cell"):
-            sfx = "_l0" if mod[-1] == "fwd_cell" else "_l0_reverse"
+        if mod[-1] in ("fwd_cell", "bwd_cell", "LstmCell_0"):
+            sfx = "_l0_reverse" if mod[-1] == "bwd_cell" else "_l0"
             base = ".".join(_module_path(tuple(mod[:-1]), renames))
         elif leaf in ("wi", "wh", "b"):
             sfx = ""
@@ -154,6 +173,8 @@ def _state_dict_from_jax(params: Mapping, renames: Mapping[Path, Path]
             state[f"{base}.weight"] = val
         elif leaf == "bias":
             state[f"{base}.bias"] = val
+        elif leaf in _RAW:
+            state[f"{base}.{leaf}"] = val
         else:
             raise KeyError(f"unmapped JAX param {'/'.join(path)}")
     return {k: np.array(v, np.float32, order="C") for k, v in state.items()}

@@ -75,7 +75,7 @@ def translate_pretrained_bert(state: Dict[str, np.ndarray]
         raise NotImplementedError(
             f"pretrain checkpoint family {family!r} grafts onto the legacy "
             "BertAddEncoder (models/legacy.py), which comes with the "
-            "variants (ROADMAP.md section 1, item 5)")
+            "legacy encoders (ROADMAP.md section 1, item 5)")
     if family == "vic":
         bert_state = {("lalayer." + k[len("encoder.layer."):]
                        if k.startswith("encoder.layer.") else k): v

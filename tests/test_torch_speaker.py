@@ -327,8 +327,29 @@ def test_save_load_round_trip(world, tmp_path):
 
 
 def test_unidirectional_encoder_raises(world):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_pair(world, bidir=False)
+    """``bidir=False`` builds (it raised before the one-direction LSTM was
+    ported): the encoder's LSTMs are one direction of rnn_dim, their
+    context equals the JAX encoder's once their ``reverse`` flag matches
+    the JAX module's (which passes its dtype where ``LSTM`` takes
+    ``reverse``, so it runs them time-reversed), and a training step gives
+    a finite loss."""
+    from dasa_tpu_torch.models.layers import LSTM
+
+    jsp, sp = make_pair(world, bidir=False)
+    enc = sp.model.encoder
+    assert isinstance(enc.lstm, LSTM) and isinstance(enc.post_lstm, LSTM)
+    assert enc.lstm.features == CFG["rnn_dim"]
+    reset_both(jsp, sp)
+    rec, lengths = sp.collect_teacher_path()
+    img, can, _mask = jax_inputs(jsp, rec, lengths)
+    ctx = jsp.model.apply(jsp.params, can, img, method=JaxSpeakerModel.encode)
+    pimg, pcan = sp._gather_traj_feats(rec)
+    enc.lstm.reverse = enc.post_lstm.reverse = True
+    with torch.no_grad():
+        pctx = sp._encode(pimg, pcan)
+    np.testing.assert_allclose(pctx.numpy(), np.asarray(ctx), **TOL)
+    enc.lstm.reverse = enc.post_lstm.reverse = False
+    assert np.isfinite(sp.train(1)).all()
 
 
 def test_cli_trains_and_validates_the_speaker(world, tmp_path, capsys):

@@ -325,10 +325,19 @@ def test_cli_trains_auglistener_under_stream(world, tmp_path, capsys):
     dict(pred_back=True), dict(pred_pm=True, pm_type="v1"),
     dict(agent_type="advanced"), dict(agent_type="mt")])
 def test_stream_aux_heads_raise(world, option):
-    """The auxiliary loss terms' heads are not ported: a stream agent
-    with one of them is refused, naming ROADMAP.md."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_agent(world, **option)
+    """The auxiliary loss terms' heads are ported (a stream agent with one
+    of them was refused before): one window with the term gives a finite
+    loss, and its log (back_loss, pm_loss or kl_loss) is finite and
+    nonzero.  tests/test_torch_variants_stream.py holds the terms against
+    the JAX package."""
+    agent = port_agent(world, **option, stream_steps=4)
+    agent.zero_grad()
+    agent.device_rollout_stream(0.2, feedback="sample")
+    key = ("back_loss" if "pred_back" in option else
+           "kl_loss" if option.get("agent_type") == "mt" else "pm_loss")
+    assert np.isfinite(float(agent.losses[-1]))
+    value = float(agent.logs[key][-1])
+    assert np.isfinite(value) and value != 0.0
 
 
 # ---------------------------------------------------------------------

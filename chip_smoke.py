@@ -10,6 +10,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --phases build,kernels,host,search
     python3 chip_smoke.py --phases build,pretrain,pretrain-chain
     python3 chip_smoke.py --phases build,kernels,variants
+    python3 chip_smoke.py --phases build,kernels,encoders
 
 Phases:
   1. build — print the card's name and power limit, build the CUDA
@@ -40,7 +41,15 @@ Phases:
      Rows named ``[rsc,T..]`` hold K1 (both directions, with and without
      the gate activations) at the search's speaker rescoring: one path
      (B = 1), H = 256, T in {1, 2, 8, 35} moves, every token valid, with
-     the ``[spk]`` limits.
+     the ``[spk]`` limits.  Rows named ``[enc,B64]``, ``[enc1,B64]``,
+     ``[mcan,B64]``, ``[joint,B20,T116]`` and ``[joint,B40,T116]`` hold
+     K1 and K2 at phase 17's LSTMs (``ENC_ROWS``: H 256 both directions,
+     H 512 one direction and H 384 both directions at B 64, T 80, ragged;
+     H 1024 both directions at B 20 and at the stream window's 40 slot
+     rows over the joint 116 tokens), with the BiLstmScanFn / LstmScanFn
+     gradients, against a cuDNN ``nn.LSTM`` of the same input width and
+     its backward.  Rows named ``[B64]`` hold K3 at phase 17's batch of
+     64 (2304 panorama rows, 1024 candidate rows).
   3. main — the launch counters set to 0, ``valid()`` (argmax evaluation
      of val_seen and val_unseen) at the full headline DASA width over a
      synthetic world, the counters read back; SR/SPL/NE per split,
@@ -155,6 +164,30 @@ Phases:
      8, K4 in 1 and 2.  Prints s an iteration, peak memory and the
      launches; then (1)'s teacher pass under always and never (phase 6's
      limits, not counted).
+  17. encoders — the encoder zoo (bf16, ``use_pallas="always"``), ten
+     configurations (``ENCODERS``), each a fresh agent at its own widths:
+     (1) EncoderLSTM at the Config defaults, the R2R baseline listener
+     (batch 64, rnn_dim 512, wemb 256, aemb 64, dropout 0.5, featdropout
+     0.3, no AdaIN); (2) the same with one LSTM direction, the masked max
+     (``sub_out=max``), zero init states and channel AdaIN (a, sigmoid);
+     (3) BEncoder on the headline BERT with the concat of its last two
+     layers; (4) CEncoder with ``update_bert``; (5) Transformer and (6)
+     Gpt (width 256, 2 layers, 8 heads); (7) BertImg, (8) BertAdd and (9)
+     BertMix on the headline listener (its BERT, decoder and AdaIN,
+     batch 20); (10) mcatt (768 wide, 2 layers, 8 heads, batch 64).  Each:
+     the launch counters set to 0, ``train()`` (2 episodic iterations)
+     and ``valid()`` on val_unseen (every instr_id once), 1 also a stream
+     window, a host-rollout iteration and a Dijkstra ``beam_valid()`` of
+     val_unseen, 8 a stream window, the counters read back.  Fails unless
+     every loss is finite, every trained component's parameters moved
+     and exactly the configuration's kernels launched: K1 and K2 in all
+     (K1 in one direction in 2), K3 in 2 and 7-9, K4 in 7-9.  Prints s an
+     iteration, peak memory and the launches; then (1)'s teacher pass
+     under always and never (phase 6's limits) and its text encode with
+     the LSTM kernels and without (the cache within phase 4's limit, the
+     gradients' cosine above phase 6's floor), not counted, and one
+     MultiDicEncoder forward (3 sentences x B 20, the headline width) with
+     the LSTM kernel and without, within phase 4's limit.
   profile (only when named in --phases) — one eval batch, one training
      iteration, one stream window, one selfTrain iteration, one search
      batch, one host-rollout iteration and one pretraining step at
@@ -166,7 +199,8 @@ during ``train()`` under stream; ``launches_speaker``: during phase 9;
 ``launches_selftrain``: during phase 11; ``launches_host``: during phase
 12; ``launches_search``: during phase 13's searches;
 ``launches_pretrain_chain``: during phase 15; ``launches_variants``:
-during phase 16's runs; ``ratio``: ``ms`` /
+during phase 16's runs; ``launches_encoders``: during phase 17's runs;
+``ratio``: ``ms`` /
 ``library_ms``; ``device_ms`` / ``library_device_ms``: the back-to-back
 device times), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -291,6 +325,55 @@ VARIANTS = (
      K12 + ("adain_channel_gate",), ("stream",)),
 )
 VARIANT_ITERS = 2
+
+# phase 17: the encoder zoo.  The plain encoders and mcatt at the Config
+# defaults, which are the R2R baseline listener's (batch 64, rnn_dim 512,
+# wemb 256, aemb 64, dropout 0.5, featdropout 0.3, no AdaIN, angle
+# features 4 wide; the MCAN at 768 wide, 2 layers, 8 heads); the legacy
+# cross encoders on the headline listener (its BERT, decoder and AdaIN,
+# batch 20).  (label, overrides, the kernels that must launch (the others
+# must not), extra runs); K3 runs only under the channel AdaIN, K4 only in
+# the BAttn decoder's shift attention.
+PLAIN = dict(encoder_type="EncoderLSTM", include_vision=False,
+             adain_type="none", use_shift=False, angle_feat_size=4,
+             critic_dim=512, dropout=0.5, featdropout=0.3, depth_drop=False,
+             consistent_drop=False, batch_size=64)
+ENC_ALL = K12 + ("adain_channel_gate", "shift_attend")
+ENCODERS = (
+    ("1 EncoderLSTM", dict(PLAIN), K12, ("stream", "host", "search",
+                                         "compare")),
+    ("2 EncoderLSTM uni+max+zero+channel",
+     dict(PLAIN, bidir=False, sub_out="max", zero_init=True,
+          adain_type="channel", ab_type="a", a_type="sigmoid"),
+     ("lstm_scan", "lstm_scan_bwd", "adain_channel_gate"), ()),
+    ("3 BEncoder", dict(PLAIN, encoder_type="BEncoder", d_bert_n_layers=2),
+     K12, ()),
+    ("4 CEncoder", dict(PLAIN, encoder_type="CEncoder", update_bert=True),
+     K12, ()),
+    ("5 Transformer", dict(PLAIN, encoder_type="Transformer"), K12, ()),
+    ("6 Gpt", dict(PLAIN, encoder_type="Gpt"), K12, ()),
+    ("7 BertImg", dict(encoder_type="BertImg"), ENC_ALL, ()),
+    ("8 BertAdd", dict(encoder_type="BertAdd"), ENC_ALL, ("stream",)),
+    ("9 BertMix", dict(encoder_type="BertMix"), ENC_ALL, ()),
+    ("10 mcatt", dict(PLAIN, encoder_type="Dic", include_vision=True,
+                      agent_type="mcatt"), K12, ()),
+)
+ENCODER_ITERS = 2
+MULTI_S = 3  # MultiDicEncoder's sentences a row
+# phase 2's rows of the encoder zoo's LSTMs (tag, kernel_rows_lstm's
+# arguments): EncoderLSTM / B/CEncoder / Transformer / Gpt at rnn_dim 512
+# (256 a direction, ragged, input wemb 256 or a 2-layer concat's 1536; the
+# row takes 256), their one-direction form (512), McattEncoder's BiLSTM
+# (768 / 2 = 384 a direction) at batch 64, and the legacy cross encoders'
+# tail over the joint [36 views; 80 tokens] sequence at the headline
+# width, at the episodic batch and the stream window's 2B slot rows
+ENC_ROWS = (
+    ("enc,B64", dict(B=64, H=256, E=256, one_dir=False)),
+    ("enc1,B64", dict(B=64, H=512, E=256, one_dir=True, two_dir=False)),
+    ("mcan,B64", dict(B=64, H=384, E=256, one_dir=False)),
+    ("joint,B20,T116", dict(B=20, T=116, H=1024, E=768, one_dir=False)),
+    ("joint,B40,T116", dict(B=40, T=116, H=1024, E=768, one_dir=False)),
+)
 
 KERNEL_INFO = {
     "bilstm_scan": ("dasa_tpu_torch/csrc/lstm_fwd.cu",
@@ -441,6 +524,20 @@ def phase_kernels(seed: int):
             rnd, gen, B, n_sm, tag, T=SPK_T, H=SPK_H, E=SPK_E, ragged=False)
         rows += k1 + k2
         check_bilstm_fn_grads(rnd, mask2, wh2, f"BiLstmScanFn {tag}")
+    # K3 at phase 17's batch of 64 (the channel-AdaIN EncoderLSTM): 2304
+    # panorama rows, 1024 candidate rows
+    k3, _ = kernel_rows_adain(rnd, gen, PLAIN["batch_size"], n_sm,
+                              f"B{PLAIN['batch_size']}")
+    rows += k3
+    # the encoder zoo's LSTMs (phase 17), each with its autograd Function
+    for tag, kw in ENC_ROWS:
+        k1, k2, (mask, wh, mask2, wh2) = kernel_rows_lstm(rnd, gen, n_sm=n_sm,
+                                                          tag=tag, **kw)
+        rows += k1 + k2
+        if kw.get("two_dir", True):
+            check_bilstm_fn_grads(rnd, mask2, wh2, f"BiLstmScanFn {tag}")
+        else:
+            check_lstm_fn_grads(rnd, mask, wh, f"LstmScanFn {tag}")
     # the speaker's rescoring of a search path: one row, T its moves
     for T in RSC_T:
         k1, _k2, _ = kernel_rows_lstm(rnd, gen, 1, n_sm, f"rsc,T{T}", T=T,
@@ -480,14 +577,16 @@ def _named(base, tag, *more):
 
 
 def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
-                     ragged=True, bwd=True):
-    """K1 (one direction untagged and tagged ``B40``: the listener's top
-    LSTM under ``d_bidirectional=False``; both directions, with and
-    without the gate activations) and, with ``bwd``, K2 at batch B, T
-    tokens, H units a direction: the listener's top BiLSTM (T 80, H 1024,
-    input 768, ragged lengths) or, tagged ``spk``, the speaker's (T 35, H
-    256, input 2176, every token valid); tagged ``rsc``, the speaker's
-    rescoring of one search path (B 1, forward only)."""
+                     ragged=True, bwd=True, one_dir=None, two_dir=True):
+    """K1 (one direction untagged and tagged ``B40``, or where ``one_dir``
+    says: the listener's top LSTM under ``d_bidirectional=False``; both
+    directions, with and without the gate activations, unless
+    ``two_dir`` is off) and, with ``bwd``, K2 at batch B, T tokens, H
+    units a direction: the listener's top BiLSTM (T 80, H 1024, input 768,
+    ragged lengths) or, tagged ``spk``, the speaker's (T 35, H 256, input
+    2176, every token valid); tagged ``rsc``, the speaker's rescoring of
+    one search path (B 1, forward only); tagged ``enc``, ``enc1``,
+    ``mcan`` and ``joint``, the encoder zoo's LSTMs (:data:`ENC_ROWS`)."""
     import torch
 
     from dasa_tpu_torch.ops.lstm import (
@@ -528,7 +627,8 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
                check_close(_named("bilstm_scan acts", tag), got2[2], ref2[2],
                            2e-2, 0.0))
     # the listener's top LSTM in one direction (d_bidirectional=False)
-    one_dir = tag in ("", "B40")
+    if one_dir is None:
+        one_dir = tag in ("", "B40")
     if one_dir:
         hk, ck, ak = lstm_scan(xw, mask, h0, c0, wh, with_acts=True)
         torch.cuda.synchronize()
@@ -573,24 +673,23 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
                                  iters=5),
                 library_fn=lambda: lstm_cudnn(packed), library_call=cudnn,
                 bound_ms=b_ms, bound_by=b_by))
-        plain2 = time_ms(lambda: bilstm_scan_ref(xw2, mask2, h02, c02, wh2),
-                         iters=3)
-        rows.append(dict(
+        plain2 = (time_ms(lambda: bilstm_scan_ref(xw2, mask2, h02, c02, wh2),
+                          iters=3) if two_dir else None)
+        rows.extend([] if not two_dir else [dict(
             name=_named("bilstm_scan", tag),
             shape=f"2 x {shape} (both directions)",
             max_abs_err=err2, tokens=T,
             fn=lambda: bilstm_scan(xw2, mask2, h02, c02, wh2),
             plain_ms=plain2, library_fn=lambda: bilstm_cudnn(packed),
             library_call="bidirectional " + cudnn,
-            bound_ms=b2_ms, bound_by=b2_by))
-        rows.append(dict(
+            bound_ms=b2_ms, bound_by=b2_by), dict(
             name=_named("bilstm_scan", tag, "acts"),
             shape=f"2 x {shape} with the gate activations (training)",
             max_abs_err=err2, tokens=T,
             fn=lambda: bilstm_scan(xw2, mask2, h02, c02, wh2,
                                    with_acts=True),
             plain_ms=plain2, library_fn=None, library_call=None,
-            bound_ms=b2a_ms, bound_by=b2a_by))
+            bound_ms=b2a_ms, bound_by=b2a_by)])
         if not tag:
             two = [lambda d=d: lstm_scan(xw2[d], mask2[d], h02[d], c02[d],
                                          wh2[d], with_acts=True)
@@ -1978,7 +2077,7 @@ def variant_launch_check(label, launches, must):
     for name in ("bilstm_scan", "lstm_scan", "lstm_scan_bwd",
                  "adain_channel_gate", "shift_attend"):
         if (launches[name] > 0) != (name in must):
-            fail(f"variants {label}: {name} launched {launches[name]} "
+            fail(f"{label}: {name} launched {launches[name]} "
                  f"times, expected {'some' if name in must else 'none'}")
 
 
@@ -1987,16 +2086,17 @@ def variant_logs_check(label, logs, aux_keys):
     nonzero in some pass."""
     for key, vals in logs.items():
         if not all(math.isfinite(v) for v in vals):
-            fail(f"variants {label}: non-finite {key} {vals}")
+            fail(f"{label}: non-finite {key} {vals}")
     for key in aux_keys:
         if not logs.get(key) or not any(v != 0.0 for v in logs[key]):
-            fail(f"variants {label}: {key} not logged or zero: "
+            fail(f"{label}: {key} not logged or zero: "
                  f"{logs.get(key)}")
 
 
 def variant_train(label, cfg, world, seed, aux_keys):
     """train() of ``cfg`` (its ``iters`` optimizer steps) on a fresh agent;
-    returns (agent, s an iteration, peak bytes) after the checks.  The
+    returns (agent, s an iteration, peak bytes) after the checks: the
+    losses finite, and every trained component's parameters moved.  The
     peak is printed beside what the card held when train() began (the
     agent's weights and whatever earlier phases keep alive)."""
     import torch
@@ -2006,6 +2106,9 @@ def variant_train(label, cfg, world, seed, aux_keys):
     agent = make_agent(cfg, world, rng_seed=seed)
     iter_s, logs = [], {}
     run_iters = agent.train
+    before = {name: p.detach().clone()
+              for name, p in agent.policy.named_parameters()
+              if p.requires_grad}
 
     def timed(n_iters, feedback):
         torch.cuda.synchronize()
@@ -2027,9 +2130,15 @@ def variant_train(label, cfg, world, seed, aux_keys):
     peak = torch.cuda.max_memory_allocated()
     del agent.train
     if agent.iter_count != cfg.iters or len(iter_s) != cfg.iters:
-        fail(f"variants {label}: {agent.iter_count} optimizer steps, "
+        fail(f"{label}: {agent.iter_count} optimizer steps, "
              f"{len(iter_s)} timed, expected {cfg.iters}")
     variant_logs_check(label, logs, aux_keys)
+    moved = {name.split(".")[0] for name, p in agent.policy.named_parameters()
+             if name in before and not torch.equal(p.detach(), before[name])}
+    want = {name.split(".")[0] for name in before}
+    if moved != want:
+        fail(f"{label}: parameters of {sorted(moved)} moved, "
+             f"expected {sorted(want)}")
     aux = {k: round(statistics.mean(logs[k]), 6) for k in aux_keys}
     print(f"  {label}: s an iteration {[round(x, 4) for x in iter_s]}; "
           f"peak {peak / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} GiB held "
@@ -2128,9 +2237,188 @@ def variant_teacher_compare(label, cfg, world, seed: int):
     print(f"  {label}: teacher pass loss always {la:.6f} never {ln:.6f}; "
           f"gradient cosine {cos:.6f}", flush=True)
     if not abs(la - ln) <= 5e-2 * abs(ln):
-        fail(f"variants {label}: teacher loss {la} vs {ln} beyond 5%")
+        fail(f"{label}: teacher loss {la} vs {ln} beyond 5%")
     if not cos >= 0.99:
-        fail(f"variants {label}: gradient cosine {cos} below 0.99")
+        fail(f"{label}: gradient cosine {cos} below 0.99")
+
+
+def phase_encoders(cfg, seed: int, root: str):
+    """Each configuration of ENCODERS on a fresh agent: train()
+    (ENCODER_ITERS episodic iterations) and valid() on val_unseen, the
+    launch counters set to 0 before and read after; configuration 1 adds
+    a stream window, a host-rollout iteration, a Dijkstra beam_valid() of
+    val_unseen and the always-vs-never comparisons of
+    :func:`encoder_pass_compare` (not counted), configuration 8 a stream
+    window.  Then one MultiDicEncoder
+    forward at the headline width, with and without the LSTM kernel."""
+    import shutil
+
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.train.trainer import World, beam_valid, valid
+
+    # one world of 66 items a split (more than the batch of 64), built at
+    # each batch size; the depth table serves the channel AdaIN
+    data_cfg, _ = headline_world(os.path.join(root, "encoders"), seed,
+                                 n_train=22, n_val=22)
+    worlds = {b: World(data_cfg.replace(batch_size=b),
+                       val_splits=("val_unseen",))
+              for b in {over.get("batch_size", cfg.batch_size)
+                        for _label, over, _must, _extra in ENCODERS}}
+    total = {}
+    card = card_name()
+    for n, (label, over, must, extra) in enumerate(ENCODERS, 1):
+        base = cfg.replace(**over, iters=ENCODER_ITERS, log_every=1,
+                           val_every=10 ** 9, save_every=10 ** 9,
+                           name=f"encoder{n}",
+                           snap_dir=os.path.join(root, "enc_snap"),
+                           log_dir=os.path.join(root, "enc_log"))
+        world = worlds[base.batch_size]
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        agent, iter_s, peak = variant_train(label, base, world, seed, ())
+        trajs = capture_results(agent)
+        start = time.perf_counter()
+        out = valid(base, world, agent=agent)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - start
+        del agent.test
+        check_coverage(world, trajs)
+        check_summary("val_unseen", out["val_unseen"])
+        if "search" in extra:
+            start = time.perf_counter()
+            found = beam_valid(base.replace(candidates=1), world,
+                               agent=agent)
+            torch.cuda.synchronize()
+            check_summary("beam_valid val_unseen", found["val_unseen"])
+            print(f"  {label}: Dijkstra beam_valid() of val_unseen "
+                  f"{time.perf_counter() - start:.2f} s, SR "
+                  f"{found['val_unseen']['success_rate']:.4f}", flush=True)
+        del agent
+        for regime in ("stream", "host"):
+            if regime in extra:  # one more optimizer step in this regime
+                over_r = (dict(rollout_mode="stream") if regime == "stream"
+                          else dict(device_rollout="never"))
+                agent, _, _ = variant_train(
+                    f"{label} ({regime})", base.replace(iters=1, **over_r),
+                    world, seed, ())
+                del agent
+        torch.cuda.synchronize()
+        launches = ops.kernel_launches()
+        print(f"  {label}: valid() {eval_s:.2f} s, SR "
+              f"{out['val_unseen']['success_rate']:.4f}; launches "
+              f"{launches}; card {card}", flush=True)
+        variant_launch_check(label, launches, must)
+        add_launches(total, launches)
+        if "compare" in extra:
+            encoder_pass_compare(label, base, world, seed)
+        shutil.rmtree(os.path.join(root, "enc_snap"), ignore_errors=True)
+        gc.collect()
+    multi_dic_compare(cfg, seed)
+    return total
+
+
+def encoder_pass_compare(label, cfg, world, seed: int):
+    """The same weights under use_pallas always and never, dropout off:
+    (a) phase 16's teacher pass (phase 6's limits; the replay takes the
+    LSTMs on their plain path, so the two differ where K3 / K4 run);
+    (b) the per-episode text encode of one batch with the LSTM through
+    its kernels (K1 forward, K2 backward) and on its plain path: the
+    cache {ctx, h0, c0} within phase 4's limit and the gradients of a
+    fixed random projection of it with a cosine above phase 6's floor."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.train.trainer import make_agent
+
+    variant_teacher_compare(label, cfg, world, seed)
+    agent = make_agent(cfg.replace(**NO_DROPOUT), world, rng_seed=seed)
+    agent.env = world.envs["train"]
+    agent.env.reset_epoch()
+    _dev, _ep, instr, valid, seq_len = agent._batch_inputs()
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    proj, out = {}, []
+    for kernel in (True, False):
+        agent.policy.zero_grad(set_to_none=True)
+        before = ops.kernel_launches()
+        cache = agent.policy.encode_text(instr, valid, seq_len, kernel)
+        for key, val in cache.items():
+            proj.setdefault(key, torch.randn(val.shape, generator=gen)
+                            .to(val.device))
+        sum((val.float() * proj[key]).sum()
+            for key, val in cache.items()).backward()
+        torch.cuda.synchronize()
+        after = ops.kernel_launches()
+        k12 = [after[k] - before[k] for k in K12]
+        if (min(k12) > 0) != kernel or (max(k12) > 0) != kernel:
+            fail(f"encoders {label}: text encode with lstm_kernel={kernel} "
+                 f"launched K1 / K2 {k12} times")
+        grad = torch.cat([p.grad.float().flatten()
+                          for p in agent.policy.encoder.parameters()
+                          if p.grad is not None])
+        out.append(({k: v.detach() for k, v in cache.items()}, grad))
+    (ck, gk), (cp, gp) = out
+    # the kernel keeps the carry in f32 where the plain path rounds it to
+    # bf16 at every op: a few bf16 ulps of the outputs' scale
+    for key in ck:
+        check_close(f"{label} text encode {key} kernel vs plain", ck[key],
+                    cp[key], 0.0, 5e-2)
+    cos = float(torch.dot(gk, gp) / (gk.norm() * gp.norm()))
+    print(f"  {label}: text encode gradient cosine kernel vs plain "
+          f"{cos:.6f}", flush=True)
+    if not cos >= 0.99:
+        fail(f"encoders {label}: text encode gradient cosine {cos} below "
+             "0.99")
+
+
+def multi_dic_compare(cfg, seed: int):
+    """One MultiDicEncoder forward (MULTI_S sentences x the headline batch,
+    the headline BERT and top BiLSTM) with the LSTM through its kernel
+    (the 3B rows in one launch a direction) and on its plain path:
+    phase 4's bf16 limit on the per-sentence contexts and the averaged
+    init states."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.models.encoder import MultiDicEncoder
+    from dasa_tpu_torch.models.policy import bert_config_from
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        enc = MultiDicEncoder(bert_config_from(cfg), cfg.d_enc_hidden_size,
+                              cfg.d_hidden_size, compute_dtype=bf)
+    enc = enc.to(dev).eval()
+    b, length = cfg.batch_size, cfg.max_input
+    instr = torch.randint(1, 2000, (b, MULTI_S, length), generator=gen)
+    lengths = torch.randint(8, length + 1, (b, MULTI_S), generator=gen)
+    valid = torch.arange(length)[None, None, :] < lengths[..., None]
+    f_t = torch.randn(b, 36, cfg.feature_all_size, generator=gen).abs()
+    instr, valid, lengths, f_t = (x.to(dev) for x in (instr, valid, lengths,
+                                                      f_t))
+    outs = []
+    with torch.no_grad():
+        text = enc.text_forward(instr, valid)
+        for kernel in (True, False):
+            before = ops.kernel_launches()["bilstm_scan"]
+            outs.append(enc(text, valid, lengths, f_t.to(bf),
+                            lstm_kernel=kernel))
+            torch.cuda.synchronize()
+            k1 = ops.kernel_launches()["bilstm_scan"] - before
+            if (k1 > 0) != kernel:
+                fail(f"MultiDicEncoder: lstm_kernel={kernel} launched the "
+                     f"LSTM kernel {k1} times")
+    (ctx_k, h_k, c_k, _), (ctx_p, h_p, c_p, _) = outs
+    if ctx_k.shape != (b, MULTI_S, length, 2 * cfg.d_enc_hidden_size):
+        fail(f"MultiDicEncoder: ctx shape {tuple(ctx_k.shape)}")
+    # the kernel keeps the carry in f32 where the plain path rounds to
+    # bf16 at every op: a few bf16 ulps of the outputs' scale
+    for name, got, ref in (("ctx", ctx_k, ctx_p), ("decoder_init", h_k, h_p),
+                           ("c_t", c_k, c_p)):
+        check_close(f"MultiDicEncoder {name} kernel vs plain", got, ref, 0.0,
+                    5e-2)
 
 
 def card_name() -> str:
@@ -2282,7 +2570,7 @@ def main() -> None:
                     default="build,kernels,main,compare,train,train-compare,"
                             "stream,stream-eval,speaker,speaker-compare,"
                             "selftrain,host,search,pretrain,pretrain-chain,"
-                            "variants")
+                            "variants,encoders")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2311,11 +2599,11 @@ def main() -> None:
     launches_eval, launches, launches_stream = {}, {}, {}
     launches_speaker, launches_selftrain = {}, {}
     launches_host, launches_search, launches_chain = {}, {}, {}
-    launches_variants = {}
+    launches_variants, launches_encoders = {}, {}
     if phases & {"main", "compare", "train", "train-compare", "stream",
                  "stream-eval", "profile", "speaker", "speaker-compare",
                  "selftrain", "host", "search", "pretrain",
-                 "pretrain-chain", "variants"}:
+                 "pretrain-chain", "variants", "encoders"}:
         with tempfile.TemporaryDirectory() as root:
             cfg, world = headline_world(root, args.seed, use_pallas="always")
             cfg_train = cfg.replace(**TRAIN)
@@ -2390,6 +2678,12 @@ def main() -> None:
                       flush=True)
                 launches_variants = phase_variants(cfg_train, args.seed,
                                                    root)
+            if "encoders" in phases:
+                print("== phase 17 (encoders): the plain, legacy and mcatt "
+                      "encoders at their widths, train() and valid()",
+                      flush=True)
+                launches_encoders = phase_encoders(cfg_train, args.seed,
+                                                   root)
             if "profile" in phases:
                 print("== profile: one eval batch, one training iteration, "
                       "one stream window, one selfTrain iteration, one "
@@ -2397,7 +2691,7 @@ def main() -> None:
                 phase_profile(cfg, cfg_train, world, args.seed)
     if rows:
         print("== phase 2 rows with the launches of phases 3, 5, 7, 9, 11, "
-              "12, 13, 15 and 16", flush=True)
+              "12, 13, 15, 16 and 17", flush=True)
     for r in rows:
         base = r["name"].split("[")[0]
         per_token = ("" if "us_per_token" not in r
@@ -2411,8 +2705,9 @@ def main() -> None:
               f"{launches_selftrain.get(base, 0)} in selfTrain train(), "
               f"{launches_host.get(base, 0)} in the host phase, "
               f"{launches_search.get(base, 0)} in the searches, "
-              f"{launches_chain.get(base, 0)} in the pretrained chain and "
-              f"{launches_variants.get(base, 0)} in the variants"
+              f"{launches_chain.get(base, 0)} in the pretrained chain, "
+              f"{launches_variants.get(base, 0)} in the variants and "
+              f"{launches_encoders.get(base, 0)} in the encoders"
               f"{per_token}",
               flush=True)
     out = []
@@ -2432,6 +2727,7 @@ def main() -> None:
                     "launches_search": launches_search.get(base, 0),
                     "launches_pretrain_chain": launches_chain.get(base, 0),
                     "launches_variants": launches_variants.get(base, 0),
+                    "launches_encoders": launches_encoders.get(base, 0),
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

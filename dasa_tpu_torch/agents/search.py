@@ -11,10 +11,10 @@ row, view, the chosen candidate's geometry), and the speaker's rescoring
 gathers their features on the device, one path at a time.
 
 Kernel routing: a search step is a single forward with no replay to stay
-consistent with, so the listener's top BiLSTM takes its kernel (K1)
-unless ``use_pallas="never"`` (the agent's ``_lstm_kernel``, as in its
-device evaluation), and under ``always`` the AdaIN gate (K3) and the
-shift attention (K4) run theirs.  The speaker's rescoring runs its
+consistent with, so the listener's encoder LSTMs (in the text encode and
+in the step) take their kernel (K1) unless ``use_pallas="never"`` (the
+agent's ``_lstm_kernel``, as in its device evaluation), and under
+``always`` the AdaIN gate (K3) and the shift attention (K4) run theirs.  The speaker's rescoring runs its
 BiLSTMs through K1 at one row (``SpeakerAgent.score_instruction``).
 """
 
@@ -54,7 +54,8 @@ def _begin(agent: Seq2SeqAgent):
     instr, valid = put(obs.instr).long(), put(~obs.pad_mask)
     seq_len = put(obs.seq_len).long()
     with torch.no_grad():
-        cached = agent.policy.encode_text(instr, valid, seq_len)
+        cached = agent.policy.encode_text(instr, valid, seq_len,
+                                          agent._lstm_kernel)
     start_vps = env.current_viewpoints()
     results = [{
         "scan": env.batch[i]["scan"],

@@ -22,8 +22,8 @@ masked argmax, a sample or the teacher), then, when training, ONE replay
 of the recorded episode through the device teacher pass's replay body.
 It serves ``device_rollout="never"``, ``--submit`` (the visited-candidate
 mask needs the host's per-episode visited sets), ``test(iters=...)`` and
-selfTrain under stream.  Both phases take the top BiLSTM on its plain
-path, as the JAX act and replay pass no ``lstm_pallas``
+selfTrain under stream.  Both phases take the encoder's LSTMs on their
+plain path, as the JAX act and replay pass no ``lstm_pallas``
 (``seq2seq.py:167-172``), so that the replay scores what the act step
 computed; under ``use_pallas="always"`` the AdaIN gate and the shift
 attention run their kernels in both.
@@ -273,14 +273,18 @@ class Seq2SeqAgent(StreamMixin):
     ``device="cpu"``).  Compute runs in ``cfg.compute_dtype`` on the card
     and in f32 on the CPU; parameters are f32, made from ``rng_seed``.
     ``cfg.use_pallas`` keeps the JAX package's meaning: ``auto`` routes
-    only the top BiLSTM of the sampled pass and of evaluation through its
-    kernels, ``always`` also the AdaIN gate and the shift attention,
-    ``never`` none."""
+    only the encoder's LSTMs (the Dic top LSTM, a plain or legacy
+    encoder's, McattEncoder's) of the sampled pass, the stream window,
+    evaluation and search through their kernels, ``always`` also the
+    AdaIN gate and the shift attention, ``never`` none.  The JAX package
+    routes only the Dic top LSTM through its kernel; the others compute
+    the same function.  ``vocab_size`` is the word vocab of the encoders
+    that embed words themselves."""
 
     def __init__(self, cfg: Config, env: Optional[R2REnv],
                  feature_db: FeatureDB,
-                 depth_db: Optional[FeatureDB] = None, rng_seed: int = 0,
-                 device=None):
+                 depth_db: Optional[FeatureDB] = None, vocab_size: int = 0,
+                 rng_seed: int = 0, device=None):
         self.cfg = cfg
         self.env = env
         self.device = resolve_device(device)
@@ -290,7 +294,8 @@ class Seq2SeqAgent(StreamMixin):
         self.dtype = dtype
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed + rng_seed)
-            policy = DasaPolicy(cfg, compute_dtype=dtype)
+            policy = DasaPolicy(cfg, vocab_size=vocab_size,
+                                compute_dtype=dtype)
         if cfg.pretrain_model_name:
             # the encoder from the pretraining checkpoint, before the
             # optimizer sees the parameters (the reference's
@@ -423,7 +428,7 @@ class Seq2SeqAgent(StreamMixin):
         arrays = dev.arrays()
         k = cfg.max_candidates
         batch = instr.shape[0]
-        cached = policy.encode_text(instr, valid, seq_len)
+        cached = policy.encode_text(instr, valid, seq_len, self._lstm_kernel)
         goal, start = ep["goal"], ep["start"]
         total_dist = dev.dist[ep["node0"], goal - dev.node_base[goal]]
         width = decoder_state_width(cfg)
@@ -732,7 +737,7 @@ class Seq2SeqAgent(StreamMixin):
                      pm_target: Optional[torch.Tensor] = None):
         """The replay body (seq2seq.py:399-593) over a recorded episode:
         the percepts of ALL steps and of the A2C bootstrap run as ONE
-        ((T+1) * B)-row batch (the top LSTM on its plain path, as the JAX
+        ((T+1) * B)-row batch (every LSTM on its plain path, as the JAX
         replay passes no ``lstm_pallas``; the gumbel gate out of test),
         then the decoder steps through the recorded observations and
         actions.  ``gen`` is a generator or the host rollout's
@@ -752,7 +757,8 @@ class Seq2SeqAgent(StreamMixin):
         flat = {key: torch.cat([stacked[key], final_sobs[key][None]]).flatten(
             0, 1) for key in REC_KEYS}
         percepts = policy.percept_step(
-            {"text_embeds": cached["text_embeds"].repeat(rep, 1, 1)},
+            {key: val.repeat(rep, *[1] * (val.dim() - 1))
+             for key, val in cached.items()},
             valid.repeat(rep, 1), seq_len.repeat(rep),
             make_step_inputs(cfg, self.tables, flat), lstm_kernel=False,
             deterministic=False, is_test=False, env_noise=env_noise,
@@ -795,8 +801,9 @@ class Seq2SeqAgent(StreamMixin):
                     rl_weight: float, ent_weight: float,
                     record: Optional[dict] = None):
         """The sampled / argmax pass (seq2seq.py:765-1204, one pass wide):
-        per step the policy forward (the top LSTM through its kernels
-        unless ``use_pallas="never"``; the gumbel gate out of test), the
+        per step the policy forward (the encoder's LSTMs, here and in the
+        per-episode text encode, through their kernels unless
+        ``use_pallas="never"``; the gumbel gate out of test), the
         action, the env transition and
         the reward, until every row has ended (the JAX program's
         all-ended cond, :1013-1017: the remaining steps add nothing); then
@@ -807,7 +814,7 @@ class Seq2SeqAgent(StreamMixin):
         arrays = dev.arrays()
         k = cfg.max_candidates
         batch = instr.shape[0]
-        cached = policy.encode_text(instr, valid, seq_len,
+        cached = policy.encode_text(instr, valid, seq_len, self._lstm_kernel,
                                     deterministic=False, gen=gen)
         goal, start = ep["goal"], ep["start"]
         goal_local = goal - arrays[8][goal]
@@ -958,7 +965,7 @@ class Seq2SeqAgent(StreamMixin):
         """One act step of the host rollout (``_act_fn``,
         seq2seq.py:341-382): the percept and the decoder step, with step
         ``t``'s dropout streams when training (the gumbel gate out of test
-        then) and the top LSTM on its plain path, as the replay takes it;
+        then) and every LSTM on its plain path, as the replay takes it;
         then the masked argmax or a sample from stream 2.  Returns (state,
         action)."""
         cfg, policy = self.cfg, self.policy

@@ -243,7 +243,7 @@ class StreamMixin:
         # the encoder's gradients come from every step of this window
         cached_tab = policy.encode_text(
             table["instr"], table["valid"], table["seq_len"],
-            deterministic=eval_mode, gen=gen)
+            self._lstm_kernel, deterministic=eval_mode, gen=gen)
 
         def forward(slot_ep, node, view, state, is_first, noise):
             """The policy step of the slots' current episodes."""

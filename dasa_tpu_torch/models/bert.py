@@ -271,15 +271,20 @@ class DicModel(nn.Module):
     """The DASA cross-modal encoder (vilmodel.py:1245-1423), split so the
     text-only stack runs once per episode (exact when
     ``update_lang_bert`` is False: only the vision input changes per
-    step)."""
+    step).  ``text_only`` builds the text stack alone, for the encoders
+    that call only :meth:`text_forward` (flax creates no other
+    parameters there)."""
 
-    def __init__(self, cfg: BertConfig, compute_dtype=torch.float32):
+    def __init__(self, cfg: BertConfig, compute_dtype=torch.float32,
+                 text_only: bool = False):
         super().__init__()
         self.config = cfg
         self.compute_dtype = compute_dtype
         self.embeddings = BertEmbeddings(cfg, compute_dtype)
         self.lalayer = nn.ModuleList(
             [BertLayer(cfg, compute_dtype) for _ in range(cfg.la_layers)])
+        if text_only:
+            return
         self.addlayer = nn.ModuleList(
             [LXRTXLayer(cfg, compute_dtype) for _ in range(cfg.vl_layers)])
         self.vlayer = nn.ModuleList(
@@ -287,17 +292,28 @@ class DicModel(nn.Module):
         self.vision_encoder = VisionEncoder(cfg, compute_dtype)
         self.pooler = BertPooler(cfg, compute_dtype)
 
-    def text_forward(self, input_ids, att_mask, gen=None):
+    def text_forward(self, input_ids, att_mask, gen=None,
+                     collect_last_n: int = 1):
         """Embeddings + la_layers text-only self-attention.  att_mask is
-        (B, L) with 1 = attend.  Frozen (``update_lang_bert`` off), the
-        stack records no graph: its output is detached, as the reference
-        detaches it."""
+        (B, L) with 1 = attend.  ``collect_last_n`` > 1 returns the channel
+        concat of the last n layers' outputs (the legacy encoders'
+        ``bert_n_layers``, r2rmodel.py:772-773,
+        ``dasa_tpu/models/bert.py:321``).  Frozen (``update_lang_bert``
+        off), the stack records no graph: its output is detached, as the
+        reference detaches it."""
+        if collect_last_n > len(self.lalayer):
+            raise ValueError(f"collect_last_n={collect_last_n} exceeds "
+                             f"la_layers={len(self.lalayer)}")
         bias = extended_attention_mask(att_mask, self.compute_dtype)
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and self.config.update_lang_bert):
             x = self.embeddings(input_ids, gen)
+            outs = []
             for layer in self.lalayer:
                 x = layer(x, bias, gen)
+                outs.append(x)
+            if collect_last_n > 1:
+                x = torch.cat(outs[-collect_last_n:], dim=-1)
         return x
 
     def cross_forward(self, text_embeds, att_mask,

@@ -1,7 +1,7 @@
-"""The DASA action decoder and the A2C critic.
+"""The action decoders and the A2C critic.
 
-Counterpart of ``BAttnDecoderLSTM`` and ``Critic`` in
-``dasa_tpu/models/decoder.py`` (reference r2r_src/model.py:422-574,
+Counterpart of ``BAttnDecoderLSTM``, ``AttnDecoderLSTM`` and ``Critic`` in
+``dasa_tpu/models/decoder.py`` (reference r2r_src/model.py:358-574,
 970-982), as single-step modules.  Dropout, the visual featdropout
 (``drop_visual``) and ``already_dropfeat`` follow the JAX modules; every
 ``forward`` takes the dropout generator ``gen`` (None = no dropout).  The
@@ -186,3 +186,14 @@ class BAttnDecoderLSTM(nn.Module):
                 back_q, cand_feat, output_tilde=False, output_prob=False)
         aux["alpha"] = alpha
         return h_1, c_1, logit, h_tilde, aux
+
+
+class AttnDecoderLSTM(BAttnDecoderLSTM):
+    """The baseline decoder step of the plain encoders (model.py:358-420,
+    ``dasa_tpu/models/decoder.py:220``): the BAttn skeleton with plain
+    panorama attention and no heads; instruction attention at
+    ``hidden_size``.  Its aux dict is empty, as the JAX module's."""
+
+    def forward(self, *args, **kwargs):
+        h_1, c_1, logit, h_tilde, _aux = super().forward(*args, **kwargs)
+        return h_1, c_1, logit, h_tilde, {}

@@ -1,13 +1,28 @@
 """Assembled navigation policy.
 
 Counterpart of ``dasa_tpu/models/policy.py`` (reference
-r2r_src/agent_dg.py:102-260): one ``nn.Module`` owning the Dic encoder,
-the decoder (BAttn with its heads, or the double / advanced / kvmem /
-new / mutan / mt agents' decoders), the critic and the AdaIN module,
-exposed as per-step methods.  The kernel switch keeps the JAX package's meaning:
+r2r_src/agent_dg.py:102-260): one ``nn.Module`` owning the encoder, the
+decoder, the critic and the AdaIN module, exposed as per-step methods.
+Three encoder families (``dasa_tpu/models/policy.py:96-249``):
+
+- the plain encoders (:data:`PLAIN_ENCODERS`: EncoderLSTM, B/CEncoder,
+  Transformer, Gpt) see no vision: the whole encoder runs once per
+  episode, its per-episode cache is ``{ctx, h0, c0}``, and the decoder is
+  ``AttnDecoderLSTM`` at ``rnn_dim``;
+- ``agent_type="mcatt"`` (on a non-plain ``encoder_type``): the MCAN
+  co-attention encoder, its embedding + BiLSTM cached as
+  ``{text_embeds}``, the backbone every step, and ``McattDecoder`` at
+  ``mcan_hidden_size``;
+- the cross-modal encoders (Dic, and the legacy BertImg / BertAdd /
+  BertMix): the text stack cached as ``{text_embeds}``, the rest every
+  step; the decoder is BAttn with its heads, or the double / advanced /
+  kvmem / new / mutan / mt agents' decoders.  BertImg's and BertAdd's ctx
+  spans [36 views; L tokens] (``percept["ctx_valid"]``).
+
+The kernel switch keeps the JAX package's meaning:
 ``use_pallas="always"`` routes the AdaIN gate and the shift attention
-through their CUDA kernels (the top BiLSTM's routing is the agent's
-``lstm_kernel`` argument, on under ``auto`` and ``always``).
+through their CUDA kernels; every encoder LSTM's routing is the agent's
+``lstm_kernel`` argument (on under ``auto`` and ``always``).
 
 Step dataflow (agent_dg.py:725-936): gather pano + candidates -> env-drop
 noise (before or after AdaIN) -> AdaIN channel modulation -> cross-modal
@@ -16,12 +31,12 @@ candidate logits.  ``deterministic=False`` turns dropout on; its masks
 come from the caller's ``torch.Generator`` ``gen``.  ``is_test`` switches
 the gumbel-sigmoid AdaIN gate to its threshold; out of test, its uniform
 noise comes from ``gen`` too (``gumbel_u(shape)`` replaces the draw, for
-tests).  The plain, legacy and mcatt encoders raise until their slice
-(ROADMAP.md).
+tests).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -32,10 +47,18 @@ from dasa_tpu_torch.models.adain import (
     adaptive_instance_normalization,
     make_adain,
 )
+from dasa_tpu_torch.models import legacy, mcan, variants
 from dasa_tpu_torch.models.bert import BertConfig
-from dasa_tpu_torch.models import variants
-from dasa_tpu_torch.models.decoder import BAttnDecoderLSTM, Critic
-from dasa_tpu_torch.models.encoder import DicEncoder
+from dasa_tpu_torch.models.decoder import (
+    AttnDecoderLSTM,
+    BAttnDecoderLSTM,
+    Critic,
+)
+from dasa_tpu_torch.models.encoder import (
+    BertTextEncoderLSTM,
+    DicEncoder,
+    EncoderLSTM,
+)
 from dasa_tpu_torch.models.layers import uniform
 
 # the agent types whose decoder replaces the BAttn decoder
@@ -44,7 +67,17 @@ VARIANT_DECODERS = {"advanced": variants.AdvancedDecoderLSTM,
                     "kvmem": variants.KVMemAttnDecoderLSTM,
                     "new": variants.NewAttnDecoderLSTM,
                     "mutan": variants.MutanAttnDecoderLSTM}
-AGENT_TYPES = ("default", "dg", "double", "mt", *VARIANT_DECODERS)
+AGENT_TYPES = ("default", "dg", "double", "mt", "mcatt",
+               *VARIANT_DECODERS)
+# encoders with no per-step vision input: the whole encoder runs once per
+# episode and the decoder is the plain AttnDecoderLSTM
+PLAIN_ENCODERS = ("EncoderLSTM", "BEncoder", "CEncoder", "Transformer",
+                  "Gpt")
+# the legacy single-stream encoders (models/legacy.py); the ctx of the
+# first two spans the joint [36 vision; L text] tokens, BertMix's the text
+JOINT_CTX_ENCODERS = ("BertImg", "BertAdd")
+LEGACY_CROSS_ENCODERS = ("BertImg", "BertAdd", "BertMix")
+ENCODER_TYPES = (*PLAIN_ENCODERS, "Dic", *LEGACY_CROSS_ENCODERS)
 
 
 class StepInputs(NamedTuple):
@@ -79,9 +112,15 @@ def _dropout_gen(deterministic: bool, gen):
 
 
 def decoder_state_width(cfg: Config) -> int:
-    """Width of the DecoderState arrays: the decoder hidden size; the
-    double agent carries its two decoder streams packed side by side."""
-    return cfg.d_hidden_size * (2 if cfg.agent_type == "double" else 1)
+    """Width of the DecoderState arrays: ``rnn_dim`` on the plain path,
+    ``mcan_hidden_size`` for mcatt (param.py:235), else ``d_hidden_size``;
+    the double agent carries its two decoder streams packed side by
+    side."""
+    if cfg.agent_type == "mcatt":
+        return cfg.mcan_hidden_size
+    base = (cfg.rnn_dim if cfg.encoder_type in PLAIN_ENCODERS
+            else cfg.d_hidden_size)
+    return base * (2 if cfg.agent_type == "double" else 1)
 
 
 def bert_config_from(cfg: Config) -> BertConfig:
@@ -100,61 +139,118 @@ def bert_config_from(cfg: Config) -> BertConfig:
 
 
 class DasaPolicy(nn.Module):
-    """The Dic cross-modal policy: every agent type of
-    :data:`AGENT_TYPES`, every AdaIN type and the BAttn heads.  The plain,
-    legacy and mcatt encoders raise until their slice (ROADMAP.md)."""
+    """Every ``encoder_type`` of :data:`ENCODER_TYPES` (and the config's
+    aliases of them), every agent type of :data:`AGENT_TYPES`, every
+    AdaIN type and the BAttn heads.  ``vocab_size`` is the word vocab of
+    the encoders that embed words themselves (EncoderLSTM, Transformer,
+    Gpt, mcatt)."""
 
-    def __init__(self, cfg: Config, compute_dtype=torch.float32):
+    def __init__(self, cfg: Config, vocab_size: int = 0,
+                 compute_dtype=torch.float32):
         super().__init__()
-        if cfg.encoder_type != "Dic" or cfg.agent_type not in AGENT_TYPES:
-            raise NotImplementedError(
-                f"DasaPolicy: encoder_type={cfg.encoder_type!r}, "
-                f"agent_type={cfg.agent_type!r} — only the Dic cross-modal "
-                "encoder with the agent types "
-                f"{', '.join(AGENT_TYPES)} is ported; the plain, legacy and "
-                "mcatt encoders come with a later slice (ROADMAP.md)")
+        if (cfg.encoder_type not in ENCODER_TYPES
+                or cfg.agent_type not in AGENT_TYPES):
+            raise ValueError(f"DasaPolicy: encoder_type={cfg.encoder_type!r},"
+                             f" agent_type={cfg.agent_type!r}")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         use_kernel = cfg.use_pallas == "always"
         kw = dict(compute_dtype=compute_dtype)
-        self.encoder = DicEncoder(
-            bert_config_from(cfg), cfg.d_enc_hidden_size, cfg.d_hidden_size,
-            bidirectional=cfg.d_bidirectional,
-            reverse_input=cfg.d_reverse_input, top_lstm=cfg.d_top_lstm,
-            ctx_v=cfg.ctx_v, ctx_v_dim=cfg.feature_all_size,
-            dropout_ratio=cfg.d_dropout_ratio, **kw)
-        num_dir = 2 if cfg.d_bidirectional else 1
-        ctx_dim = (cfg.d_enc_hidden_size * num_dir if cfg.d_top_lstm
-                   else cfg.bert_hidden_size)
-        args = (cfg.aemb, cfg.d_hidden_size, cfg.feature_all_size,
-                cfg.angle_feat_size, ctx_dim)
-        kw.update(dropout_ratio=cfg.dropout, featdropout=cfg.featdropout)
-        agent = cfg.agent_type
-        if agent == "double":
-            self.decoder = variants.DoubleBAttnDecoderLSTM(*args, **kw)
-        elif agent == "mt":
-            self.decoder = variants.MTDecoder(
-                *args, vemb_dim=cfg.bert_hidden_size, **kw)
-        elif agent in VARIANT_DECODERS:
-            # the JAX policy passes pred_back to advanced, kvmem and new
-            # only (``dasa_tpu/models/policy.py:214-222``)
-            back = cfg.pred_back and agent != "mutan"
-            self.decoder = VARIANT_DECODERS[agent](
-                *args, pred_back=back, max_input=cfg.max_input, **kw)
+        dec_kw = dict(kw, dropout_ratio=cfg.dropout,
+                      featdropout=cfg.featdropout)
+        if cfg.encoder_type in PLAIN_ENCODERS:
+            self.encoder = self._plain_encoder(cfg, vocab_size, kw)
+            self.decoder = AttnDecoderLSTM(
+                cfg.aemb, cfg.rnn_dim, cfg.feature_all_size,
+                cfg.angle_feat_size, cfg.rnn_dim, **dec_kw)
+        elif cfg.agent_type == "mcatt":
+            # the MCAN co-attention encoder and the plain decoder at the
+            # MCAN hidden width (agent_mcatt.py:125-131)
+            mh = cfg.mcan_hidden_size
+            self.encoder = mcan.McattEncoder(
+                vocab_size, cfg.wemb, mh, cfg.mcan_heads, 4 * mh,
+                cfg.mcan_layers, cfg.feature_all_size,
+                flat_mlp_size=cfg.mcan_flat_mlp_size, flat_out_size=mh, **kw)
+            self.decoder = variants.McattDecoder(
+                cfg.aemb, mh, cfg.feature_all_size, cfg.angle_feat_size, mh,
+                max_input=cfg.max_input, **dec_kw)
         else:
-            self.decoder = BAttnDecoderLSTM(
-                *args, use_shift=cfg.use_shift,
-                shift_kernel_size=cfg.shift_kernel_size,
-                pred_back=cfg.pred_back, back_input=cfg.back_input,
-                use_dyrelu=cfg.decoder_type == "dyrelu", pred_pm=cfg.pred_pm,
-                pm_type=cfg.pm_type, max_input=cfg.max_input,
-                use_kernel=use_kernel, **kw)
+            self.encoder = self._cross_encoder(cfg, kw)
+            self.decoder = self._cross_decoder(cfg, use_kernel, dec_kw)
         self._check_heads(cfg)
         self.critic = Critic(decoder_state_width(cfg), cfg.critic_dim,
                              cfg.dropout, compute_dtype=compute_dtype)
         self.adain = make_adain(cfg.adain_type, cfg.feature_size,
                                 cfg.ab_type, cfg.a_type, compute_dtype,
                                 use_kernel=use_kernel)
+
+    @staticmethod
+    def _plain_encoder(cfg: Config, vocab_size: int, kw) -> nn.Module:
+        """EncoderLSTM, B/CEncoderLSTM or the Transformer / Gpt encoder,
+        each at ``rnn_dim`` (``rnn_dim / 2`` a direction when
+        bidirectional)."""
+        hidden = cfg.rnn_dim // 2 if cfg.bidir else cfg.rnn_dim
+        tail = dict(bidirectional=cfg.bidir, dropout_ratio=cfg.dropout, **kw)
+        if cfg.encoder_type in ("Transformer", "Gpt"):
+            return legacy.TransformerTextEncoder(
+                vocab_size, cfg.legacy_width, cfg.legacy_heads,
+                cfg.legacy_layers, hidden, cfg.rnn_dim,
+                causal=cfg.encoder_type == "Gpt", **tail)
+        tail.update(sub_out=cfg.sub_out, zero_init=cfg.zero_init)
+        if cfg.encoder_type == "EncoderLSTM":
+            return EncoderLSTM(vocab_size, cfg.wemb, hidden, **tail)
+        # update_bert gates the text BERT's freeze (model.py:88-247)
+        bcfg = dataclasses.replace(bert_config_from(cfg),
+                                   update_lang_bert=cfg.update_bert)
+        return BertTextEncoderLSTM(
+            bcfg, hidden,
+            project_dim=cfg.wemb if cfg.encoder_type == "CEncoder" else None,
+            n_layer_concat=cfg.d_bert_n_layers, **tail)
+
+    @staticmethod
+    def _cross_encoder(cfg: Config, kw) -> nn.Module:
+        common = dict(bidirectional=cfg.d_bidirectional,
+                      dropout_ratio=cfg.d_dropout_ratio, **kw)
+        if cfg.encoder_type == "BertImg":
+            return legacy.BertImgEncoder(
+                bert_config_from(cfg), cfg.d_enc_hidden_size,
+                cfg.d_hidden_size, n_vision_tokens=cfg.views, **common)
+        if cfg.encoder_type in LEGACY_CROSS_ENCODERS:
+            return legacy.BertAddEncoder(
+                bert_config_from(cfg), cfg.d_enc_hidden_size,
+                cfg.d_hidden_size, n_vision_tokens=cfg.views,
+                strip_vision_ctx=cfg.encoder_type == "BertMix", **common)
+        return DicEncoder(
+            bert_config_from(cfg), cfg.d_enc_hidden_size, cfg.d_hidden_size,
+            reverse_input=cfg.d_reverse_input, top_lstm=cfg.d_top_lstm,
+            ctx_v=cfg.ctx_v, ctx_v_dim=cfg.feature_all_size, **common)
+
+    @staticmethod
+    def _cross_decoder(cfg: Config, use_kernel: bool, kw) -> nn.Module:
+        num_dir = 2 if cfg.d_bidirectional else 1
+        ctx_dim = (cfg.d_enc_hidden_size * num_dir if cfg.d_top_lstm
+                   else cfg.bert_hidden_size)
+        args = (cfg.aemb, cfg.d_hidden_size, cfg.feature_all_size,
+                cfg.angle_feat_size, ctx_dim)
+        agent = cfg.agent_type
+        if agent == "double":
+            return variants.DoubleBAttnDecoderLSTM(*args, **kw)
+        if agent == "mt":
+            return variants.MTDecoder(*args, vemb_dim=cfg.bert_hidden_size,
+                                      **kw)
+        if agent in VARIANT_DECODERS:
+            # the JAX policy passes pred_back to advanced, kvmem and new
+            # only (``dasa_tpu/models/policy.py:214-222``)
+            back = cfg.pred_back and agent != "mutan"
+            return VARIANT_DECODERS[agent](
+                *args, pred_back=back, max_input=cfg.max_input, **kw)
+        return BAttnDecoderLSTM(
+            *args, use_shift=cfg.use_shift,
+            shift_kernel_size=cfg.shift_kernel_size,
+            pred_back=cfg.pred_back, back_input=cfg.back_input,
+            use_dyrelu=cfg.decoder_type == "dyrelu", pred_pm=cfg.pred_pm,
+            pm_type=cfg.pm_type, max_input=cfg.max_input,
+            use_kernel=use_kernel, **kw)
 
     def _check_heads(self, cfg: Config) -> None:
         """The loss terms the config asks for need their decoder's heads:
@@ -172,10 +268,20 @@ class DasaPolicy(nn.Module):
                 f"for {', '.join(missing)}")
 
     # ---- episode-level ----
-    def encode_text(self, instr, valid_mask, seq_len, *,
-                    deterministic: bool = True, gen=None) -> Dict:
-        """Per-episode cacheable computation: the text-only BERT stack."""
+    def encode_text(self, instr, valid_mask, seq_len,
+                    lstm_kernel: bool = False, *, deterministic: bool = True,
+                    gen=None) -> Dict:
+        """Per-episode cacheable computation: a plain encoder whole
+        (``{ctx, h0, c0}``), mcatt's embedding + BiLSTM, or the cross
+        encoders' text stack (``{text_embeds}``).  ``lstm_kernel`` routes
+        the LSTM of the first two through ``ops.lstm``'s Functions."""
         gen = _dropout_gen(deterministic, gen)
+        if self.cfg.encoder_type in PLAIN_ENCODERS:
+            ctx, h0, c0 = self.encoder(instr, valid_mask, lstm_kernel, gen)
+            return {"ctx": ctx, "h0": h0, "c0": c0}
+        if self.cfg.agent_type == "mcatt":
+            return {"text_embeds": self.encoder.text_forward(
+                instr, ~valid_mask, lstm_kernel)}
         return {"text_embeds": self.encoder.text_forward(instr, valid_mask,
                                                          gen)}
 
@@ -183,6 +289,14 @@ class DasaPolicy(nn.Module):
     def encode_step(self, cached: Dict, valid_mask, seq_len, f_t,
                     lstm_kernel: bool = False, gen=None):
         """Per-step encoding.  Returns (ctx, h0, c0, ctx_v, v_emb)."""
+        if self.cfg.encoder_type in PLAIN_ENCODERS:
+            return cached["ctx"], cached["h0"], cached["c0"], None, None
+        if self.cfg.agent_type == "mcatt":
+            # the decoder state starts from (attended_txt, attended_v)
+            # (agent_mcatt.py:620-623)
+            ctx, att_txt, _v, att_v = self.encoder.cross_forward(
+                cached["text_embeds"], ~valid_mask, f_t, gen)
+            return ctx, att_txt, att_v, None, None
         return self.encoder(
             cached["text_embeds"], valid_mask, seq_len,
             f_t_all=f_t if self.cfg.include_vision else None,
@@ -304,7 +418,8 @@ class DasaPolicy(nn.Module):
         ``env_noise`` (F,) is the shared feature-drop mask, applied before
         or after AdaIN as ``env_drop_stage`` says; ``is_test`` and
         ``gumbel_u`` are :meth:`apply_adain`'s.  Returns the percept dict
-        (ctx, h0, c0, inputs, and the MT agent's v_emb)."""
+        (ctx, h0, c0, inputs; BertImg's and BertAdd's ctx_valid, the MT
+        agent's v_emb)."""
         cfg = self.cfg
         raw_gen = gen
         gen = _dropout_gen(deterministic, gen)
@@ -323,6 +438,12 @@ class DasaPolicy(nn.Module):
             # both decoder streams start from the encoder state
             h0, c0 = torch.cat([h0, h0], -1), torch.cat([c0, c0], -1)
         percept = {"ctx": ctx, "h0": h0, "c0": c0, "inputs": inputs}
+        if cfg.encoder_type in JOINT_CTX_ENCODERS:
+            # ctx spans [36 vision; L text] tokens: the mask grows too
+            percept["ctx_valid"] = torch.cat(
+                [torch.ones(valid_mask.shape[0], cfg.views,
+                            dtype=torch.bool, device=valid_mask.device),
+                 valid_mask], dim=1)
         if cfg.agent_type == "mt":
             percept["v_emb"] = v_emb
         return percept
@@ -343,10 +464,13 @@ class DasaPolicy(nn.Module):
             h=first * h0 + (1 - first) * state.h,
             c=first * c0 + (1 - first) * state.c,
             h1=first * h0 + (1 - first) * state.h1)
+        ctx_valid = percept.get("ctx_valid", valid_mask)
         state, logit, aux = self.decode_step(
-            percept["inputs"], state, percept["ctx"], ~valid_mask, gen=gen,
+            percept["inputs"], state, percept["ctx"], ~ctx_valid, gen=gen,
             already_dropfeat=already_dropfeat, v_emb=percept.get("v_emb"))
-        return state, logit, self.critic(state.h, gen), aux
+        # mcatt's critic reads h_tilde (agent_mcatt.py:630 appends h1)
+        critic_in = state.h1 if self.cfg.agent_type == "mcatt" else state.h
+        return state, logit, self.critic(critic_in, gen), aux
 
     def policy_step(self, cached: Dict, valid_mask, seq_len,
                     inputs: StepInputs, state: DecoderState, is_first,
@@ -368,7 +492,7 @@ class DasaPolicy(nn.Module):
     def forward(self, instr, valid_mask, seq_len, inputs: StepInputs,
                 lstm_kernel: bool = False):
         """First-step (logit, value) of fresh episodes."""
-        cached = self.encode_text(instr, valid_mask, seq_len)
+        cached = self.encode_text(instr, valid_mask, seq_len, lstm_kernel)
         percept = self.percept_step(cached, valid_mask, seq_len, inputs,
                                     lstm_kernel=lstm_kernel)
         state = DecoderState(percept["h0"], percept["c0"], percept["h0"])

@@ -1,10 +1,10 @@
 """Ablation-variant building blocks and decoders.
 
 Counterpart of ``dasa_tpu/models/variants.py`` (reference r2r_src/dyrelu.py,
-fusion.py, model.py:578-968, 1609-1707) without ``McattDecoder``, which
-comes with the mcatt slice (ROADMAP.md): the language-conditioned DyReLU,
-the MLB and Mutan fusions, the Advanced / KVMem / New / Mutan decoders on
-one skeleton, the MT decoder and the double (RGB + depth) decoder.  Each
+fusion.py, model.py:578-968, 1505-1707): the language-conditioned DyReLU,
+the MLB and Mutan fusions, the Advanced / KVMem / New / Mutan / Mcatt
+decoders on one skeleton, the MT decoder and the double (RGB + depth)
+decoder.  Each
 decoder step has ``BAttnDecoderLSTM``'s signature and returns (h_1, c_1,
 logit, h_tilde, aux); dropout draws from ``gen`` (None = none).  As in the
 JAX package, these decoders never take the shift attention, so K4 is not
@@ -321,6 +321,13 @@ class MutanAttnDecoderLSTM(_VariantDecoderBase):
         attended, _ = self.attention_layer(h_1_drop, ctx, ctx_mask,
                                            output_tilde=False)
         return self.linear_mutan(self.mutan(h_1_drop, attended, gen))
+
+
+class McattDecoder(_VariantDecoderBase):
+    """agent_mcatt's decoder (model.py:1505-1591,
+    ``dasa_tpu/models/variants.py:335``): the plain skeleton, its
+    instruction attention over the McattEncoder's co-attended token
+    stream at the MCAN hidden width."""
 
 
 class MTDecoder(nn.Module):

@@ -380,10 +380,25 @@ class LstmScanFn(torch.autograd.Function):
                 dc0.to(c0.dtype), dwh.to(wh.dtype))
 
 
+def _in_row_chunks(fn, axis, xw, mask, h0, c0, wh):
+    """``fn`` over near-equal chunks of at most FWD_MAX_B (= BWD_MAX_B)
+    batch rows, each through the same kernels (the rows are independent
+    recurrences); ``axis`` is the batch axis of xw and mask, h0 and c0
+    have theirs one before it."""
+    n = -(-xw.shape[axis] // FWD_MAX_B)
+    parts = zip(*(x.tensor_split(n, dim) for x, dim in
+                  ((xw, axis), (mask, axis), (h0, axis - 1), (c0, axis - 1))))
+    outs = [fn(*p, wh) for p in parts]
+    return tuple(torch.cat(o, axis) for o in zip(*outs))
+
+
 def lstm_scan_fn(xw, mask, h0, c0, wh) -> Tuple[torch.Tensor, torch.Tensor]:
     """``LstmScanFn.apply``: the masked recurrence with gradients.  A pure
     forward (grad mode off, or no input requiring grad) calls
-    :func:`lstm_scan` directly, as :func:`bilstm_scan_fn` does."""
+    :func:`lstm_scan` directly, as :func:`bilstm_scan_fn` does.  More than
+    FWD_MAX_B batch rows run in chunks (:func:`_in_row_chunks`)."""
+    if xw.shape[1] > FWD_MAX_B:
+        return _in_row_chunks(lstm_scan_fn, 1, xw, mask, h0, c0, wh)
     if not (torch.is_grad_enabled()
             and any(x.requires_grad for x in (xw, h0, c0, wh))):
         return lstm_scan(xw, mask, h0, c0, wh)
@@ -469,7 +484,10 @@ def bilstm_scan_fn(xw, mask, h0, c0, wh) -> Tuple[torch.Tensor, torch.Tensor]:
     (2, H, 4H) tensor or a pair of (H, 4H) tensors.  A pure forward (grad
     mode off, or no input requiring grad) calls :func:`bilstm_scan`
     directly: no gate activations are written and no autograd node
-    holds the outputs."""
+    holds the outputs.  More than FWD_MAX_B batch rows run in chunks
+    (:func:`_in_row_chunks`)."""
+    if xw.shape[2] > FWD_MAX_B:
+        return _in_row_chunks(bilstm_scan_fn, 2, xw, mask, h0, c0, wh)
     if not (torch.is_grad_enabled()
             and any(x.requires_grad for x in (xw, h0, c0, wh[0], wh[1]))):
         return bilstm_scan(xw, mask, h0, c0, wh)

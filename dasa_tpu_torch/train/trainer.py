@@ -95,8 +95,8 @@ def make_agent(cfg: Config, world: World, env_name: str = "train",
         raise NotImplementedError(
             "data_parallel comes with the data-parallel slice (ROADMAP.md)")
     return Seq2SeqAgent(cfg, world.envs[env_name], world.feature_db,
-                        depth_db=world.depth_db, rng_seed=rng_seed,
-                        device=device)
+                        depth_db=world.depth_db, vocab_size=len(world.tok),
+                        rng_seed=rng_seed, device=device)
 
 
 def run_validation(agent: Seq2SeqAgent, world: World, writer, it: int,

@@ -19,11 +19,15 @@ torch tensors.  Conventions, the inverse of
   ``_l0_reverse``, a one-direction LSTM's ``LstmCell_0`` its ``_l0``;
 - a raw parameter (``a_csb``, ``kv``, ``v_stop_feat``, ...) keeps its
   name;
-- in the policy, ``lalayer_3`` is ``lalayer.3``; a decoder's
-  ``embedding`` is the reference Sequential's ``embedding.0``; the
-  critic's ``Dense_0`` and ``Dense_1`` are ``state2value.0`` and
-  ``state2value.3``, an MLP's (``a_fc_content``, ...) ``0`` and ``2``;
-  the Mutan fusion's ``linear_hv_3`` is ``list_linear_hv.3``.  The
+- in the policy, ``lalayer_3`` is ``lalayer.3`` (and the legacy
+  encoders' ``layer_3``, ``text_3``, ``add_3`` are ``layers.3``,
+  ``text_layers.3``, ``add_layers.3``; the MCAN backbone's ``sa_x_3`` is
+  ``sa_x.3``); a decoder's ``embedding`` is the reference Sequential's
+  ``embedding.0``; the critic's ``Dense_0`` and ``Dense_1`` are
+  ``state2value.0`` and ``state2value.3``, an MLP's (``a_fc_content``,
+  ..., an MCAN ``ffn``) ``0`` and ``2``, AttFlat's ``Dense_0``-``2``
+  ``mlp.0``, ``mlp.2`` and ``linear_merge``; the Mutan fusion's
+  ``linear_hv_3`` is ``list_linear_hv.3``.  The
   speaker's names carry over unchanged;
 - in the pretraining models, the MLM head's ``transform`` and
   ``LayerNorm`` are HF ``BertOnlyMLMHead``'s
@@ -49,10 +53,17 @@ from torch import nn
 
 Path = Tuple[str, ...]
 
-_INDEXED = re.compile(r"^(lalayer|addlayer|vlayer|linear_hv|linear_hq)_(\d+)$")
-_LISTS = {"linear_hv": "list_linear_hv", "linear_hq": "list_linear_hq"}
-_MLP = re.compile(r"_fc_(content|style|fuse)$")
-_MLP_LAYERS = {"Dense_0": "0", "Dense_1": "2"}
+_INDEXED = re.compile(r"^(lalayer|addlayer|vlayer|linear_hv|linear_hq|layer|"
+                      r"text|add|sa_x|sa_y|sga_x|sga_y)_(\d+)$")
+_LISTS = {"linear_hv": "list_linear_hv", "linear_hq": "list_linear_hq",
+          "layer": "layers", "text": "text_layers", "add": "add_layers"}
+# the auto-named Dense layers of a module, by its name: the MLPs'
+# (``a_fc_content``, ..., the MCAN FFNs) are a Sequential's 0 and 2;
+# AttFlat's an MLP and its merge
+_MLP = re.compile(r"(_fc_(content|style|fuse)|^ffn)$")
+_MLP_LAYERS = {"Dense_0": ("0",), "Dense_1": ("2",)}
+_ATTFLAT_LAYERS = {"Dense_0": ("mlp", "0"), "Dense_1": ("mlp", "2"),
+                   "Dense_2": ("linear_merge",)}
 _RENAME = {("decoder", "embedding"): ("decoder", "embedding", "0"),
            ("decoder", "rgb_decoder", "embedding"):
                ("decoder", "rgb_decoder", "embedding", "0"),
@@ -92,11 +103,15 @@ def _module_path(path: Path, renames: Mapping[Path, Path]) -> Path:
             path = new + path[len(head):]
     out = []
     for i, p in enumerate(path):
+        parent = path[i - 1] if i else ""
         if (m := _INDEXED.match(p)):
-            p = f"{_LISTS.get(m.group(1), m.group(1))}.{m.group(2)}"
-        elif p in _MLP_LAYERS and i and _MLP.search(path[i - 1]):
-            p = _MLP_LAYERS[p]
-        out.append(p)
+            out.append(f"{_LISTS.get(m.group(1), m.group(1))}.{m.group(2)}")
+        elif p in _MLP_LAYERS and _MLP.search(parent):
+            out.extend(_MLP_LAYERS[p])
+        elif p in _ATTFLAT_LAYERS and parent == "attflat_lang":
+            out.extend(_ATTFLAT_LAYERS[p])
+        else:
+            out.append(p)
     return tuple(out)
 
 

@@ -6,10 +6,12 @@ init (``encoder.bert = premodel.bert``, r2r_src/agent_dg.py:135-188; its
 README passes ``--pretrain_model_name``).  Three on-disk formats resolve:
 
 1. an HF ``save_pretrained`` directory (its ``pytorch_model.bin``) or a
-   bare ``.bin``, of the DicAdd / DicPM or Vic family
-   (``utils/torch_import.py``; the HugAdd and BertAdd families raise
-   ``NotImplementedError``).  Its tables graft only at equal shapes: a
-   word table of another row count is a reported miss.
+   bare ``.bin``, of any of the four families of r2rpretrain_class.py
+   (``utils/torch_import.py``): DicAdd / DicPM and Vic onto the DicModel,
+   HugAdd and BertAdd onto the legacy BertAddEncoder (a Dic listener
+   grafts nothing from those two and refuses them, as JAX's does).  Its
+   tables graft only at equal shapes: a word table of another row count
+   is a reported miss.
 2. the port's own Pretrainer snapshot ``checkpoint-N``
    (``pretrain/trainer.py``: a torch file of ``{"step", "state_dict"}``).
 3. the JAX package's Pretrainer snapshot ``checkpoint-N`` (a pickle of

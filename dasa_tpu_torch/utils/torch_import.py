@@ -3,20 +3,29 @@ pretraining half.
 
 Counterpart of the pretraining part of ``dasa_tpu/utils/torch_import.py``
 (``load_torch_state_dict`` :381 as ``numpy_state_dict``,
-``detect_pretrain_family`` :216,
-``translate_vic_model`` :143, ``apply_translated`` :330,
-``import_pretrained_bert`` :392).  The port's names ARE the reference's
-torch names, so where the JAX package translates (transposes, renames
-``weight`` to ``kernel``) the port strips or adds a prefix:
+``detect_pretrain_family`` :216, ``translate_vic_model`` :143,
+``translate_bert_add_model`` :159, ``translate_bert_add_encoder`` :184,
+``apply_translated`` :330, ``import_pretrained_bert`` :392).  The port's
+names ARE the reference's torch names, so where the JAX package translates
+(transposes, renames ``weight`` to ``kernel``) the port strips or adds a
+prefix:
 
 - ``dic`` (DicAdd / DicPM, r2rpretrain_class.py:106-235): the checkpoint's
   ``bert.*`` is the listener's ``encoder.bert.*``;
 - ``vic`` (VicModel, 61-104): its full text BERT ``encoder.layer.N``
   becomes ``lalayer.N`` of the ``Vic``-aliased DicModel (12 text layers,
   ``config.py``);
-- ``hugadd`` and ``bertadd_encoder`` need the legacy ``BertAddEncoder``
-  (``models/legacy.py``), which the port has not yet (ROADMAP.md, item 5
-  of section 1): they raise ``NotImplementedError``.
+- ``hugadd`` (HugAdd, vilmodel BertAddModel, 11-59) grafts onto the
+  legacy ``BertAddEncoder`` (``models/legacy.py``): ``embeddings.*`` and
+  ``img_embedding.*`` keep their names, the text stack ``encoder.layer.N``
+  becomes ``text_layers.N`` and the joint ``addlayer.layer.N``
+  ``add_layers.N``; the pooler has no counterpart and is not taken;
+- ``bertadd_encoder`` (BertAdd*, the r2rmodel BertAddEncoder, 285-378)
+  carries the whole encoder: its HF BertModel under ``bert.`` maps as
+  HugAdd's does, and its top ``lstm`` and ``encoder_lstm2decoder_{ht,ct}``
+  land on the tail's ``lstm`` and ``encoder2decoder_{ht,ct}``, each LSTM
+  direction's two biases summed into ``bias_ih`` (``bias_hh`` zero, the
+  port's LSTM convention).
 
 The listener half (``import_listener_checkpoint``) needs no module here:
 ``Seq2SeqAgent.load`` reads a reference listener file directly.
@@ -64,18 +73,63 @@ def detect_pretrain_family(bert_state: Dict[str, np.ndarray]) -> str:
         f"{sorted(keys)[:8]}")
 
 
+# the BertAdd families' reference names -> the port's BertAddEncoder's
+# (under "encoder."): HugAdd's BertAddModel, and the r2rmodel
+# BertAddEncoder's HF BertModel under "bert." with its top LSTM and
+# projections
+_HUGADD = (("embeddings.", "embeddings."),
+           ("img_embedding.", "img_embedding."),
+           ("encoder.layer.", "text_layers."),
+           ("addlayer.layer.", "add_layers."))
+_BERTADD_ENCODER = (("bert.embeddings.", "embeddings."),
+                    ("img_embedding.", "img_embedding."),
+                    ("bert.encoder.layer.", "text_layers."),
+                    ("addlayer.layer.", "add_layers."),
+                    ("lstm.", "tail.lstm."),
+                    ("encoder_lstm2decoder_ht.", "tail.encoder2decoder_ht."),
+                    ("encoder_lstm2decoder_ct.", "tail.encoder2decoder_ct."))
+
+
+def _renamed(state: Dict[str, np.ndarray], prefixes) -> Dict[str, np.ndarray]:
+    """The parameters (``weight*`` / ``bias*``) whose key starts with a
+    prefix of ``prefixes``, renamed onto the port's encoder; the JAX
+    translators take no others (a pooler, buffers)."""
+    out = {}
+    for key, val in state.items():
+        if not key.rsplit(".", 1)[-1].startswith(("weight", "bias")):
+            continue
+        for old, new in prefixes:
+            if key.startswith(old):
+                out["encoder." + new + key[len(old):]] = val
+                break
+    return out
+
+
+def _fold_lstm_biases(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Each LSTM direction's bias_hh added into its bias_ih and zeroed:
+    the JAX cell's one bias is their sum (``translate_lstm``), and the
+    port's LSTM trains bias_ih alone (``models/layers.py:_fold_bias_``)."""
+    out = dict(state)
+    for key, val in state.items():
+        if ".bias_hh_l0" in key:
+            ih = key.replace("bias_hh", "bias_ih")
+            out[ih] = np.asarray(state[ih]) + np.asarray(val)
+            out[key] = np.zeros_like(np.asarray(val))
+    return out
+
+
 def translate_pretrained_bert(state: Dict[str, np.ndarray]
                               ) -> Dict[str, np.ndarray]:
     """A pretrain checkpoint's ``bert.*`` weights under the listener's
-    names (``encoder.bert.*``), by family."""
+    names (``encoder.bert.*``, or the legacy BertAddEncoder's
+    ``encoder.*``), by family."""
     bert_state = {k[len("bert."):]: v for k, v in state.items()
                   if k.startswith("bert.")}
     family = detect_pretrain_family(bert_state)
-    if family in ("hugadd", "bertadd_encoder"):
-        raise NotImplementedError(
-            f"pretrain checkpoint family {family!r} grafts onto the legacy "
-            "BertAddEncoder (models/legacy.py), which comes with the "
-            "legacy encoders (ROADMAP.md section 1, item 5)")
+    if family == "hugadd":
+        return _renamed(bert_state, _HUGADD)
+    if family == "bertadd_encoder":
+        return _fold_lstm_biases(_renamed(bert_state, _BERTADD_ENCODER))
     if family == "vic":
         bert_state = {("lalayer." + k[len("encoder.layer."):]
                        if k.startswith("encoder.layer.") else k): v

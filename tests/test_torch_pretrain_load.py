@@ -10,8 +10,8 @@ process without flax or msgpack), an HF ``pytorch_model.bin`` of the
 DicAdd family (at the BERT vocab's rows, in torch's zip and legacy
 formats, and at the word vocab's rows, which neither side row-slices on
 that path), and one of the Vic family.
-It must raise as JAX does for zero leaves grafted and a missing path,
-and ``NotImplementedError`` for the HugAdd and BertAdd families.  Then
+It must raise as JAX does for zero leaves grafted (a HugAdd or BertAdd
+file on this Dic listener among them) and a missing path.  Then
 the JAX listener's files (msgpack and the round-1 pickle) and speaker
 file load into the port equal to ``load_jax_params`` of the same params,
 and a reference r2r_src listener file (component ``adaIn``) loads as
@@ -298,14 +298,20 @@ def test_graft_errors(pair, tmp_path):
     (tmp_path / "notes.txt").write_text("not a checkpoint")
     with pytest.raises(ValueError, match="neither"):
         load_pretrained_encoder(base, str(tmp_path / "notes.txt"))
+    # the HugAdd and BertAdd families graft onto the legacy BertAddEncoder
+    # (tests/test_torch_encoders_policy.py); a Dic listener takes none of
+    # their weights and refuses them, as the JAX package's does
     for family, key in (("hugadd", "addlayer.layer.0.attention.self.query"),
                         ("bertadd_encoder",
                          "bert.encoder.layer.0.attention.self.query")):
         path = tmp_path / family / "pytorch_model.bin"
         os.makedirs(path.parent)
         torch.save({f"bert.{key}.weight": torch.ones(2, 2)}, path)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="ZERO leaves"):
             load_pretrained_encoder(base, str(path.parent))
+        with pytest.raises(ValueError, match="ZERO leaves"):
+            jax_pretrain_load.load_pretrained_encoder(pair[0].params,
+                                                      str(path.parent))
 
 
 @pytest.mark.parametrize("fmt", ["msgpack", "round1_pickle"])

@@ -7,7 +7,8 @@ DyReLU and fusion blocks are initialized with a fixed key; their params
 go across with ``policy_state_dict_from_jax`` (strict), and the same numpy
 inputs go through both in f32: the step's outputs, its aux outputs and
 the gradients of a loss on them.  Also ``_pm_score`` for every
-``pm_type``, ``mt_kl_rows``, and the refusals that remain
+``pm_type``, ``mt_kl_rows``, the heads a decoder lacks, and the three
+policies an earlier slice refused
 (tests/test_torch_variants_policy.py holds whole policies and the agent).
 
 Tolerance: rtol 1e-5, atol 1e-6 for a decoder step's outputs (atol 1e-5
@@ -22,13 +23,16 @@ import pytest
 import torch
 
 from dasa_tpu.agents.seq2seq import mt_kl_rows as jax_mt_kl_rows
+from dasa_tpu.config import Config as JaxConfig
+from dasa_tpu.models import DasaPolicy as JaxPolicy
+from dasa_tpu.models import StepInputs as JaxInputs
 from dasa_tpu.models import decoder as jdecoder
 from dasa_tpu.models import variants as jvariants
 from dasa_tpu_torch.agents.seq2seq import mt_kl_rows
 from dasa_tpu_torch.config import Config
 from dasa_tpu_torch.models import decoder as tdecoder
 from dasa_tpu_torch.models import variants as tvariants
-from dasa_tpu_torch.models.policy import DasaPolicy
+from dasa_tpu_torch.models.policy import DasaPolicy, StepInputs
 from dasa_tpu_torch.testing import torch_threads
 from dasa_tpu_torch.utils.jax_params import policy_state_dict_from_jax
 
@@ -277,11 +281,43 @@ def test_fusions_match_flax(kind):
     (dict(encoder_type="EncoderLSTM"), "EncoderLSTM"),
     (dict(encoder_type="BertAdd"), "BertAdd")])
 def test_unported_policies_raise(kw, match):
-    """The mcatt agent, the plain encoders and the legacy encoders are a
-    later slice: they raise, naming ROADMAP.md."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
-        DasaPolicy(Config(**{**BASE, **kw}))
-    assert match in str(err.value)
+    """The mcatt agent, the plain encoders and the legacy encoders, which
+    an earlier slice refused, now build with their own encoder and give
+    the JAX policy's first-step logits and value (same weights; rtol and
+    atol 1e-4 where the 768-wide BERT is in the path,
+    tests/test_torch_models.py's reason)."""
+    encoder = {"mcatt": "McattEncoder", "EncoderLSTM": "EncoderLSTM",
+               "BertAdd": "BertAddEncoder"}[match]
+    # the MCAN narrowed as the BERT is (only mcatt reads these fields)
+    kw = {**BASE, "mcan_hidden_size": 64, "mcan_heads": 2, "mcan_layers": 1,
+          "mcan_flat_mlp_size": 32, **kw, "use_pallas": "never"}
+    policy = DasaPolicy(Config(**kw), vocab_size=100).eval()
+    assert type(policy.encoder).__name__ == encoder
+    rng = np.random.default_rng(9)
+    f_all, length, k = policy.cfg.feature_all_size, 12, 6
+    arrs = [np.abs(rand(rng, *s)) for s in ((B, 8), (B, 36, f_all),
+                                            (B, 36, f_all), (B, k, f_all),
+                                            (B, k, f_all))]
+    mask = np.arange(k)[None] > np.array([2, 4, 5])[:, None]
+    instr = rng.integers(1, 100, (B, length))
+    valid = ragged_mask(B, length)
+    jpol = JaxPolicy(JaxConfig(**kw), vocab_size=100)
+    jargs = (jnp.asarray(instr, jnp.int32), jnp.asarray(valid),
+             jnp.asarray(valid.sum(1), jnp.int32),
+             JaxInputs(*map(jnp.asarray, arrs), jnp.asarray(mask)))
+    params = jpol.init({"params": jax.random.PRNGKey(0),
+                        "dropout": jax.random.PRNGKey(1)}, *jargs)
+    policy.load_state_dict({n: torch.from_numpy(v) for n, v in
+                            policy_state_dict_from_jax(jax.tree_util.tree_map(
+                                np.asarray, params)).items()})
+    ref = jpol.apply(params, *jargs)
+    with torch.no_grad():
+        got = policy(torch.from_numpy(instr), torch.from_numpy(valid),
+                     torch.from_numpy(valid.sum(1)),
+                     StepInputs(*map(torch.from_numpy, arrs),
+                                torch.from_numpy(mask)))
+    for g, r in zip(got, ref):
+        close(g, r, dict(rtol=1e-4, atol=1e-4))
 
 
 @pytest.mark.parametrize("kw", [

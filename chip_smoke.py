@@ -11,6 +11,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --phases build,pretrain,pretrain-chain
     python3 chip_smoke.py --phases build,kernels,variants
     python3 chip_smoke.py --phases build,kernels,encoders
+    python3 chip_smoke.py --phases build,kernels,ndh,knobs
 
 Phases:
   1. build — print the card's name and power limit, build the CUDA
@@ -49,7 +50,11 @@ Phases:
      rows over the joint 116 tokens), with the BiLstmScanFn / LstmScanFn
      gradients, against a cuDNN ``nn.LSTM`` of the same input width and
      its backward.  Rows named ``[B64]`` hold K3 at phase 17's batch of
-     64 (2304 panorama rows, 1024 candidate rows).
+     64 (2304 panorama rows, 1024 candidate rows).  Rows named
+     ``[ndh,B20,T300]`` and ``[ndh,B64,T300]`` hold K1 and K2 at NDH's
+     300-token dialogs (H 1024 both directions, ragged; B 64 in the row
+     chunks the launch plans allow, ``ops/lstm.py:max_chunk_rows``), with
+     BiLstmScanFn's gradients.
   3. main — the launch counters set to 0, ``valid()`` (argmax evaluation
      of val_seen and val_unseen) at the full headline DASA width over a
      synthetic world, the counters read back; SR/SPL/NE per split,
@@ -70,7 +75,7 @@ Phases:
      within the stated tolerance, the cosine of the flattened gradients
      above the stated floor, and the share of equal trajectories.
   7. stream — the launch counters set to 0, ``train()`` under
-     ``rollout_mode="stream"`` (8 windows of 40 slots x 35 steps, one
+     ``rollout_mode="stream"`` (4 windows of 40 slots x 35 steps, one
      optimizer step each) at headline width under ``use_pallas="always"``,
      the counters read back.  Fails unless every kernel launched, every
      loss is finite, the parameters moved and no episode was taken twice
@@ -188,11 +193,34 @@ Phases:
      gradients' cosine above phase 6's floor), not counted, and one
      MultiDicEncoder forward (3 sentences x B 20, the headline width) with
      the LSTM kernel and without, within phase 4's limit.
+  18. ndh — NDH at headline width (``--train ndh --history all
+     --path_type trusted_path``: max_input 300, max_action 40, batch 20,
+     bf16, ``use_pallas="always"``) over CVDN dialogs written on a
+     synthetic world (``testing.write_ndh_task``, every instruction
+     filling the 300 tokens): the launch counters set to 0, ``train()``
+     (2 episodic iterations), ``valid()`` of both val splits (the
+     ``validndh`` path) and one stream window, the counters read back.
+     Fails unless K1-K4 launched, the losses are finite, the trained
+     components moved and every instr_id was evaluated once; prints s an
+     iteration, agent-steps/s of ``valid()`` (an untrained policy stops
+     after a few of the 40 steps) and the peak memory.  Then the teacher
+     pass under always and never (loss within 1%, gradient cosine above
+     0.999), not counted.
+  19. knobs — on the headline episodic pair (batch 20): 2 iterations of
+     ``accumulate_gradient("sample")`` under ``bench.py``'s episodic
+     default ``fuse_passes="auto"``, which the port runs as the split
+     pair (s an iteration; fails unless two passes an iteration ran); one
+     sampled pass of that agent under each ``remat`` mode from the same
+     generator state (gradients within 1e-3
+     relative L2 of never's, s a pass, peak memory); phase 17's BertImg
+     and mcatt sampled passes under remat never and percept (the peak
+     memory).  The counters are set to 0 before each run and summed.
   profile (only when named in --phases) — one eval batch, one training
      iteration, one stream window, one selfTrain iteration, one search
      batch, one host-rollout iteration and one pretraining step at
      headline width under torch.profiler, each after a warm-up: device
      time by kernel, the device's busy share of the wall.
+Each phase ends with its wall time, in parentheses.
 Then one ``{"kernels": [...]}`` JSON line (``launches``: the count during
 ``train()``; ``launches_eval``: during ``valid()``; ``launches_stream``:
 during ``train()`` under stream; ``launches_speaker``: during phase 9;
@@ -200,6 +228,8 @@ during ``train()`` under stream; ``launches_speaker``: during phase 9;
 12; ``launches_search``: during phase 13's searches;
 ``launches_pretrain_chain``: during phase 15; ``launches_variants``:
 during phase 16's runs; ``launches_encoders``: during phase 17's runs;
+``launches_ndh``: during phase 18's runs; ``launches_knobs``: during
+phase 19's runs;
 ``ratio``: ``ms`` /
 ``library_ms``; ``device_ms`` / ``library_device_ms``: the back-to-back
 device times), and as the last line
@@ -241,11 +271,11 @@ TRAIN = dict(
     featdropout=0.4, optim="rms", lr=1e-4, use_lr_scheduler=True,
     ml_weight=0.2, feedback="sample", rollout_mode="episodic",
     fuse_passes="never", remat="never")
-TRAIN_ITERS = 8
+TRAIN_ITERS = 4
 # the stream regime: 2B = 40 slots, S = max_action = 35 steps a window,
 # the pool sized from the mean path length (agents/stream.py)
 STREAM_W = 2 * HEADLINE["batch_size"]
-STREAM_WINDOWS = 8
+STREAM_WINDOWS = 4
 # the speaker at its Config widths (rnn_dim 512: a BiLSTM of 256 a
 # direction; input feature_all_size 2176; teacher paths of at most
 # max_action 35 steps), trained at the Config default batch of 64
@@ -375,6 +405,26 @@ ENC_ROWS = (
     ("joint,B40,T116", dict(B=40, T=116, H=1024, E=768, one_dir=False)),
 )
 
+# phase 2's rows of this slice: K1 and K2 at NDH's 300-token dialogs (the
+# headline top BiLSTM, H 1024 a direction) at the episodic batch, and at 64
+# rows in the chunks the plans allow (the stream window's text encode)
+NDH_T = 300
+SLICE_ROWS = (
+    ("ndh,B20,T300", dict(B=20, T=NDH_T, H=1024, E=768, one_dir=False)),
+    ("ndh,B64,T300", dict(B=64, T=NDH_T, H=1024, E=768, one_dir=False)),
+)
+# phase 18: NDH at the headline width (--train ndh --history all
+# --path_type trusted_path: max_input 300, max_action 40), dialogs of about
+# 330 words so that every instruction fills the 300 tokens
+NDH = dict(max_input=NDH_T, max_action=40, path_type="trusted_path",
+           history="all")
+NDH_WORDS = 330
+NDH_ITERS = 2
+# phase 19: the JAX knobs on the headline episodic pair
+KNOB_ITERS = 2
+REMAT_MODES = ("never", "percept", "dots", "auto", "always")
+REMAT_RTOL = 1e-3
+
 KERNEL_INFO = {
     "bilstm_scan": ("dasa_tpu_torch/csrc/lstm_fwd.cu",
                     "dasa_tpu/ops/lstm.py:38 (_fwd_kernel)"),
@@ -394,7 +444,7 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median of per-call CUDA-event times, after warm-up."""
     import torch
 
@@ -413,7 +463,7 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
+def device_ms(fn, iters: int = 10, warmup: int = 3, reps: int = 3) -> float:
     """Device time per call: ``iters`` calls back to back behind a GPU
     sleep long enough for the host to enqueue them all, so that no call
     waits on the host; CUDA events around the run, the median of ``reps``
@@ -503,6 +553,7 @@ def phase_kernels(seed: int):
 
     n_sm = _build.sm_count(torch.empty(1, device=dev))
     rows = []
+    start = time.perf_counter()
     for B in (20, STREAM_W):
         tag = "" if B == 20 else f"B{B}"
         k1, k2, (mask, wh, mask2, wh2) = kernel_rows_lstm(rnd, gen, B, n_sm,
@@ -538,12 +589,22 @@ def phase_kernels(seed: int):
             check_bilstm_fn_grads(rnd, mask2, wh2, f"BiLstmScanFn {tag}")
         else:
             check_lstm_fn_grads(rnd, mask, wh, f"LstmScanFn {tag}")
+    # this slice's rows: NDH's 300 tokens (B 20 in one launch, B 64 in the
+    # plan's chunks)
+    for tag, kw in SLICE_ROWS:
+        k1, k2, (_mask, _wh, mask2, wh2) = kernel_rows_lstm(
+            rnd, gen, n_sm=n_sm, tag=tag, **kw)
+        rows += k1 + k2
+        check_bilstm_fn_grads(rnd, mask2, wh2, f"BiLstmScanFn {tag}")
     # the speaker's rescoring of a search path: one row, T its moves
     for T in RSC_T:
         k1, _k2, _ = kernel_rows_lstm(rnd, gen, 1, n_sm, f"rsc,T{T}", T=T,
                                       H=SPK_H, E=SPK_E, ragged=False,
                                       bwd=False)
         rows += k1
+    print(f"  (the checks against the plain versions: "
+          f"{time.perf_counter() - start:.1f} s)", flush=True)
+    start = time.perf_counter()
     for r in rows:
         fn, lib_fn = r.pop("fn"), r.pop("library_fn")
         # K1 and its cuDNN forward under no_grad; K2's yardstick is a
@@ -568,6 +629,7 @@ def phase_kernels(seed: int):
             r["us_per_token"] = r["device_ms"] * 1e3 / r.pop("tokens")
             print(f"  {r['name']} per token: {r['us_per_token']:.3f} us of "
                   "device time", flush=True)
+    print(f"  (the timings: {time.perf_counter() - start:.1f} s)", flush=True)
     return rows
 
 
@@ -599,11 +661,30 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
         lstm_scan_bwd_ref,
         lstm_scan_ref,
         bwd_plan,
+        row_chunks,
     )
-    from dasa_tpu_torch.ops import _build
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     rows = []
+    # more rows than one launch takes at this T run in near-equal chunks,
+    # as bilstm_scan_fn / lstm_scan_fn split them (ops/lstm.py)
+    n_chunks = row_chunks(B, T, H, 2, n_sm)
+    parts = [slice(int(ix[0]), int(ix[-1]) + 1)
+             for ix in torch.arange(B).tensor_split(n_chunks)]
+    bc = parts[0].stop - parts[0].start  # the largest chunk's rows
+
+    def in_chunks(fn, args, axes):
+        """fn over the row chunks of ``args`` (each sliced on its axis in
+        ``axes``, None for a weight), outputs joined on their row axis."""
+        outs = [fn(*(a if ax is None else a[(slice(None),) * ax + (s,)]
+                     for a, ax in zip(args, axes))) for s in parts]
+        return tuple(torch.cat(o, dim=ax) for o, ax in zip(
+            zip(*outs), [axes[0]] * len(outs[0])))
+
+    def bi(with_acts=False):
+        return in_chunks(
+            lambda *a: bilstm_scan(*a, with_acts=with_acts),
+            (xw2, mask2, h02, c02, wh2), (2, 2, 1, 1, None))
     # the reverse direction runs on the flipped sequence, so its masked
     # tokens come first
     lengths = (torch.randint(20, T + 1, (B,), generator=gen) if ragged
@@ -617,7 +698,7 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
     xw, h0, c0, wh = xw2[0], h02[0], c02[0], wh2[0]
     # bf16(h) feeds every product, so one-ulp differences in a token's
     # rounding (2^-8 relative) propagate through the 80-step chain
-    got2 = bilstm_scan(xw2, mask2, h02, c02, wh2, with_acts=True)
+    got2 = bi(with_acts=True)
     torch.cuda.synchronize()
     ref2 = bilstm_scan_ref(xw2, mask2, h02, c02, wh2)
     err2 = max(check_close(_named("bilstm_scan h_seq", tag), got2[0], ref2[0],
@@ -642,10 +723,11 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
     else:
         ck, ak = got2[1][0], got2[2][0]
     for dirs in (1, 2):
-        p = fwd_plan(T, B, H, n_sm, dirs)
-        print(f"  lstm_fwd B={B}, {dirs} direction(s): {p.launches} "
-              f"launch(es) of {p.ctas} CTAs of {p.units} units, {p.smem} "
-              "bytes of shared memory", flush=True)
+        p = fwd_plan(T, bc, H, n_sm, dirs)
+        print(f"  lstm_fwd T={T} B={B} ({n_chunks} chunk(s) of at most {bc} "
+              f"rows), {dirs} direction(s): {p.launches} launch(es) a chunk "
+              f"of {p.ctas} CTAs of {p.units} units, {p.smem} bytes of "
+              "shared memory", flush=True)
     # torch does not flatten bf16 cuDNN weights (it warns): each call
     # compacts them first, a ~15 MB copy
     lstm_cudnn = torch.nn.LSTM(E, H, device=dev, dtype=bf)
@@ -662,7 +744,8 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
                               2 * 2.0 * T * B * H * 4 * H)
     cudnn = (f"torch.nn.LSTM (cuDNN) on a PackedSequence, input {E} "
              "(includes the input projection)")
-    shape = f"T{T} B{B} H{H}"
+    shape = f"T{T} B{B} H{H}" + (f" in {n_chunks} row chunks" if n_chunks > 1
+                                  else "")
     with torch.no_grad():
         if one_dir:
             rows.append(dict(
@@ -670,24 +753,22 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
                 shape=f"{shape} (one direction)", max_abs_err=err, tokens=T,
                 fn=lambda: lstm_scan(xw, mask, h0, c0, wh),
                 plain_ms=time_ms(lambda: lstm_scan_ref(xw, mask, h0, c0, wh),
-                                 iters=5),
+                                 iters=5, warmup=1),
                 library_fn=lambda: lstm_cudnn(packed), library_call=cudnn,
                 bound_ms=b_ms, bound_by=b_by))
         plain2 = (time_ms(lambda: bilstm_scan_ref(xw2, mask2, h02, c02, wh2),
-                          iters=3) if two_dir else None)
+                          iters=3, warmup=1) if two_dir else None)
         rows.extend([] if not two_dir else [dict(
             name=_named("bilstm_scan", tag),
             shape=f"2 x {shape} (both directions)",
             max_abs_err=err2, tokens=T,
-            fn=lambda: bilstm_scan(xw2, mask2, h02, c02, wh2),
-            plain_ms=plain2, library_fn=lambda: bilstm_cudnn(packed),
+            fn=bi, plain_ms=plain2, library_fn=lambda: bilstm_cudnn(packed),
             library_call="bidirectional " + cudnn,
             bound_ms=b2_ms, bound_by=b2_by), dict(
             name=_named("bilstm_scan", tag, "acts"),
             shape=f"2 x {shape} with the gate activations (training)",
             max_abs_err=err2, tokens=T,
-            fn=lambda: bilstm_scan(xw2, mask2, h02, c02, wh2,
-                                   with_acts=True),
+            fn=lambda: bi(with_acts=True),
             plain_ms=plain2, library_fn=None, library_call=None,
             bound_ms=b2a_ms, bound_by=b2a_by)])
         if not tag:
@@ -707,7 +788,15 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
     g_c = torch.zeros_like(g_h)
     g_c[-1] = rnd(B, H, scale=0.05)
     bwd_args = (ak, c_prev, g_h, g_c, mask, wh)
-    got = lstm_scan_bwd(*bwd_args)
+
+    def bwd():
+        outs = [lstm_scan_bwd(*(a[:, s] for a in bwd_args[:5]), wh)
+                for s in parts]
+        return (torch.cat([o[0] for o in outs], 1),
+                torch.cat([o[1] for o in outs], 0),
+                torch.cat([o[2] for o in outs], 0))
+
+    got = bwd()
     torch.cuda.synchronize()
     ref = lstm_scan_bwd_ref(*bwd_args)
     # the same f32 arithmetic per token; the bf16 dgates of a token can
@@ -721,14 +810,16 @@ def kernel_rows_lstm(rnd, gen, B, n_sm, tag, T=80, H=1024, E=768,
     n_bytes = (2 * (ak.numel() + 3 * g_h.numel() + mask.numel() + wh.numel()
                     + ak.numel()) + 4 * 2 * B * H)
     b_ms, b_by = bound_ms(n_bytes, 2.0 * T * B * H * 4 * H)
-    plan = bwd_plan(T, B, H, _build.sm_count(ak))
-    print(f"  lstm_scan_bwd B={B}: {plan.ctas} CTAs (no clusters), "
+    plan = bwd_plan(T, bc, H, n_sm)
+    print(f"  lstm_scan_bwd T={T} B={B} ({n_chunks} chunk(s) of at most "
+          f"{bc} rows): {plan.ctas} CTAs (no clusters), "
           f"{plan.stages} stages of {plan.kc} columns, {plan.smem} bytes of "
           "shared memory", flush=True)
     k2 = [dict(
         name=_named("lstm_scan_bwd", tag), shape=f"{shape} (one direction)",
-        max_abs_err=err, tokens=T, fn=lambda: lstm_scan_bwd(*bwd_args),
-        plain_ms=time_ms(lambda: lstm_scan_bwd_ref(*bwd_args), iters=5),
+        max_abs_err=err, tokens=T, fn=bwd,
+        plain_ms=time_ms(lambda: lstm_scan_bwd_ref(*bwd_args), iters=5,
+                         warmup=1),
         library_fn=lambda: torch.autograd.grad(
             out_c.data, lib_inputs, go, retain_graph=True),
         library_call="backward of the torch.nn.LSTM (cuDNN) call above "
@@ -2165,6 +2256,7 @@ def phase_variants(cfg, seed: int, root: str):
     total = {}
     card = card_name()
     for n, (label, over, aux_keys, must, extra) in enumerate(VARIANTS, 1):
+        config_start = time.perf_counter()
         base = cfg.replace(**over, iters=VARIANT_ITERS, log_every=1,
                            val_every=10 ** 9, save_every=10 ** 9,
                            name=f"variant{n}",
@@ -2202,13 +2294,17 @@ def phase_variants(cfg, seed: int, root: str):
             variant_teacher_compare(label, base, world, seed)
         shutil.rmtree(os.path.join(root, "variants"), ignore_errors=True)
         gc.collect()
+        print(f"  ({label}: {time.perf_counter() - config_start:.1f} s)",
+              flush=True)
     return total
 
 
-def variant_teacher_compare(label, cfg, world, seed: int):
+def variant_teacher_compare(label, cfg, world, seed: int,
+                            loss_rtol: float = 5e-2, cos_floor: float = 0.99):
     """The same weights under use_pallas always and never, dropout off:
     one teacher pass at train_ml 1 (the heads' terms in its loss); phase
-    6's limits on the loss and the gradients' cosine."""
+    6's limits on the loss and the gradients' cosine unless others are
+    given."""
     import torch
 
     from dasa_tpu_torch.train.trainer import make_agent
@@ -2236,10 +2332,10 @@ def variant_teacher_compare(label, cfg, world, seed: int):
     cos = float(torch.dot(ga, gn) / (ga.norm() * gn.norm()))
     print(f"  {label}: teacher pass loss always {la:.6f} never {ln:.6f}; "
           f"gradient cosine {cos:.6f}", flush=True)
-    if not abs(la - ln) <= 5e-2 * abs(ln):
-        fail(f"{label}: teacher loss {la} vs {ln} beyond 5%")
-    if not cos >= 0.99:
-        fail(f"{label}: gradient cosine {cos} below 0.99")
+    if not abs(la - ln) <= loss_rtol * abs(ln):
+        fail(f"{label}: teacher loss {la} vs {ln} beyond {loss_rtol:.0%}")
+    if not cos >= cos_floor:
+        fail(f"{label}: gradient cosine {cos} below {cos_floor}")
 
 
 def phase_encoders(cfg, seed: int, root: str):
@@ -2269,6 +2365,7 @@ def phase_encoders(cfg, seed: int, root: str):
     total = {}
     card = card_name()
     for n, (label, over, must, extra) in enumerate(ENCODERS, 1):
+        config_start = time.perf_counter()
         base = cfg.replace(**over, iters=ENCODER_ITERS, log_every=1,
                            val_every=10 ** 9, save_every=10 ** 9,
                            name=f"encoder{n}",
@@ -2315,6 +2412,8 @@ def phase_encoders(cfg, seed: int, root: str):
             encoder_pass_compare(label, base, world, seed)
         shutil.rmtree(os.path.join(root, "enc_snap"), ignore_errors=True)
         gc.collect()
+        print(f"  ({label}: {time.perf_counter() - config_start:.1f} s)",
+              flush=True)
     multi_dic_compare(cfg, seed)
     return total
 
@@ -2419,6 +2518,225 @@ def multi_dic_compare(cfg, seed: int):
                            ("c_t", c_k, c_p)):
         check_close(f"MultiDicEncoder {name} kernel vs plain", got, ref, 0.0,
                     5e-2)
+
+
+def ndh_world(root: str, seed: int):
+    """The headline listener's config under ``--train ndh --history all
+    --path_type trusted_path`` and its NDH world: CVDN dialogs of about
+    NDH_WORDS words (``testing.write_ndh_task``) over a synthetic world,
+    30 train and 10 + 10 val dialogs."""
+    from dasa_tpu_torch.config import Config
+    from dasa_tpu_torch.testing import (
+        write_ndh_task,
+        write_synthetic_connectivity,
+    )
+    from dasa_tpu_torch.train.trainer import World
+
+    conn = os.path.join(root, "ndh_connectivity")
+    data = os.path.join(root, "ndh_task")
+    write_synthetic_connectivity(conn, ["synthA", "synthB"], n_nodes=40,
+                                 seed=seed)
+    write_ndh_task(data, ["synthA"], ["synthB"], conn, n_train=30, n_val=10,
+                   dialog_words=NDH_WORDS, seed=seed)
+    cfg = Config(**{**HEADLINE, **TRAIN, **NDH}, train="ndh",
+                 use_pallas="always", data_dir=data, connectivity_dir=conn,
+                 seed=seed)
+    return cfg, World(cfg, ndh=True)
+
+
+def phase_ndh(seed: int, root: str):
+    """NDH at the headline width: the launch counters set to 0,
+    ``train()`` (NDH_ITERS episodic iterations), ``valid()`` of both val
+    splits (``validndh``) and one stream window, the counters read back;
+    then the teacher pass under always and never (loss within 1%,
+    gradient cosine above 0.999; not counted)."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.train.trainer import valid
+
+    cfg, world = ndh_world(root, seed)
+    cfg = cfg.replace(iters=NDH_ITERS, log_every=1, val_every=10 ** 9,
+                      save_every=10 ** 9, name="ndh",
+                      snap_dir=os.path.join(root, "ndh_snap"),
+                      log_dir=os.path.join(root, "ndh_log"))
+    tokens = [int((np.asarray(item["instr_encoding"]) != 0).sum())
+              for env in world.envs.values() for item in env.data]
+    print(f"  NDH world: {', '.join(f'{k} {v.size()}' for k, v in world.envs.items())}"
+          f" dialogs; instruction tokens {min(tokens)}-{max(tokens)} of "
+          f"max_input {cfg.max_input}, max_action {cfg.max_action}",
+          flush=True)
+    if max(tokens) != cfg.max_input:
+        fail(f"ndh: the longest instruction has {max(tokens)} tokens, "
+             f"not max_input {cfg.max_input}")
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    agent, iter_s, peak = variant_train("ndh", cfg, world, seed, ())
+    trajs = capture_results(agent)
+    steps0 = agent.total_env_steps
+    start = time.perf_counter()
+    out = valid(cfg, world, agent=agent)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - start
+    del agent.test
+    check_coverage(world, trajs)
+    eval_steps = agent.total_env_steps - steps0
+    for split, summary in out.items():
+        check_summary(f"ndh {split}", summary)
+    del agent
+    gc.collect()
+    _agent, stream_s, stream_peak = variant_train(
+        "ndh (stream)", cfg.replace(iters=1, rollout_mode="stream"), world,
+        seed, ())
+    del _agent
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    card = card_name()
+    print(f"  ndh: train() s an iteration {[round(x, 4) for x in iter_s]}, "
+          f"peak {peak / 2 ** 30:.2f} GiB; validndh valid() {eval_s:.2f} s, "
+          f"{eval_steps / eval_s:.2f} agent-steps/s ({eval_steps} "
+          f"agent-steps), SR "
+          f"{', '.join(f'{k} {v['success_rate']:.4f}' for k, v in out.items())}"
+          f"; stream window {stream_s[0]:.4f} s, peak "
+          f"{stream_peak / 2 ** 30:.2f} GiB; launches {launches}; card "
+          f"{card}", flush=True)
+    variant_launch_check("ndh", launches, PATH_KERNELS)
+    gc.collect()
+    variant_teacher_compare("ndh", cfg, world, seed, loss_rtol=1e-2,
+                            cos_floor=0.999)
+    return launches
+
+
+def _flat_grad(agent):
+    import torch
+
+    return torch.cat([p.grad.float().flatten()
+                      for p in agent.policy.parameters()
+                      if p.grad is not None])
+
+
+def remat_pass(agent, total):
+    """One sampled pass of ``agent`` from zeroed gradients, the launch
+    counters set to 0 before and added to ``total`` after.  Returns (s,
+    agent-steps, peak and held bytes)."""
+    import torch
+
+    from dasa_tpu_torch import ops
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_kernel_launches()
+    start = time.perf_counter()
+    agent.zero_grad()
+    agent.device_rollout(train_ml=None, train_rl=True, feedback="sample")
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - start
+    add_launches(total, ops.kernel_launches())
+    return (pass_s, int(agent._env_steps_log[-1]),
+            torch.cuda.max_memory_allocated(), held)
+
+
+def phase_knobs(cfg, world, seed: int, root: str):
+    """The JAX knobs on the headline episodic pair (batch 20): (a)
+    KNOB_ITERS iterations of ``accumulate_gradient("sample")`` under
+    ``bench.py``'s episodic default ``fuse_passes="auto"``, which the port
+    runs as the split pair (two passes an iteration), s an iteration; (b)
+    one sampled pass of that agent under each remat mode from the same
+    generator state: the gradients within REMAT_RTOL (relative L2) of
+    never's, s a pass and the peak memory; (c) the sampled passes of
+    phase 17's BertImg and mcatt under remat never and percept: the peak
+    memory.  The counters are set to 0 before each run and read
+    after."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.train.trainer import World, make_agent
+
+    card = card_name()
+    total = {}
+    env = world.envs["train"]
+    agent = make_agent(cfg.replace(fuse_passes="auto"), world, rng_seed=seed)
+    agent.env = env
+    env.reset_epoch()
+    gc.collect()
+    iter_s, iter_steps = [], []
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    for _ in range(KNOB_ITERS):
+        start = time.perf_counter()
+        agent.zero_grad()
+        agent.accumulate_gradient("sample", ml_weight=cfg.ml_weight)
+        agent.optim_step()
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - start)
+        iter_steps.append(agent.env_steps_total() - sum(iter_steps))
+    launches = ops.kernel_launches()
+    add_launches(total, launches)
+    losses = [float(x) for x in agent.losses]
+    passes = len(agent._env_steps_log)
+    if passes != 2 * KNOB_ITERS or not all(math.isfinite(x) for x in losses):
+        fail(f"fuse_passes=auto: {passes} passes (expected the split pair's "
+             f"{2 * KNOB_ITERS}), losses {losses}")
+    print(f"  fuse_passes=auto (the split pair): s an iteration "
+          f"{[round(x, 4) for x in iter_s]}; agent-steps an iteration "
+          f"{iter_steps}; {passes} passes; launches {launches}; card {card}",
+          flush=True)
+    variant_launch_check("fuse_passes=auto", launches, PATH_KERNELS)
+
+    # (b) one sampled pass under each remat mode on this agent, each from
+    # the same generator state (the rollout counter set back) and batch
+    counter = agent._rollout_counter
+    base_grad, base_steps = None, None
+    for mode in REMAT_MODES:
+        agent.cfg = cfg.replace(remat=mode)
+        agent._rollout_counter = counter
+        env.reset_epoch()
+        pass_s, steps, peak, held = remat_pass(agent, total)
+        grad = _flat_grad(agent)
+        if base_grad is None:
+            base_grad, base_steps = grad, steps
+        rel = float((grad - base_grad).norm() / base_grad.norm())
+        print(f"  remat={mode}: sampled pass {pass_s:.4f} s, {steps} "
+              f"agent-steps, peak {peak / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f}"
+              f" GiB held before), gradient relative error to never "
+              f"{rel:.3e}; card {card}", flush=True)
+        if steps != base_steps or not rel <= REMAT_RTOL:
+            fail(f"remat={mode}: {steps} agent-steps vs {base_steps}, "
+                 f"gradient relative error {rel} > {REMAT_RTOL}")
+        del grad
+    del agent, base_grad
+    gc.collect()
+
+    # (c) the peaks of phase 17's BertImg and mcatt: the sampled pass from
+    # the same batch and generator state under both modes
+    data_cfg, _ = headline_world(os.path.join(root, "knobs"), seed,
+                                 n_train=22, n_val=22)
+    for label, over in (("7 BertImg", dict(encoder_type="BertImg")),
+                        ("10 mcatt", dict(PLAIN, encoder_type="Dic",
+                                          include_vision=True,
+                                          agent_type="mcatt"))):
+        base = cfg.replace(**over)
+        wld = World(data_cfg.replace(batch_size=base.batch_size),
+                    val_splits=("val_unseen",))
+        agent = make_agent(base, wld, rng_seed=seed)
+        for mode in ("never", "percept"):
+            agent.cfg = base.replace(remat=mode)
+            agent._rollout_counter = 0
+            wld.envs["train"].reset_epoch()
+            pass_s, steps, peak, held = remat_pass(agent, total)
+            loss = float(agent.losses[-1])
+            print(f"  {label} sampled pass, remat={mode}: "
+                  f"{pass_s:.4f} s, {steps} agent-steps, peak "
+                  f"{peak / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} GiB "
+                  f"held before), loss {loss:.4f}, batch "
+                  f"{base.batch_size}; card {card}", flush=True)
+            if not math.isfinite(loss):
+                fail(f"{label} remat={mode}: loss {loss}")
+        del agent, wld
+        gc.collect()
+    return total
 
 
 def card_name() -> str:
@@ -2570,7 +2888,7 @@ def main() -> None:
                     default="build,kernels,main,compare,train,train-compare,"
                             "stream,stream-eval,speaker,speaker-compare,"
                             "selftrain,host,search,pretrain,pretrain-chain,"
-                            "variants,encoders")
+                            "variants,encoders,ndh,knobs")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2587,111 +2905,129 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     kind = torch.cuda.get_device_name(0)
+    clock = {"name": None, "start": time.perf_counter()}
+
+    def header(text):
+        """Print a phase's header, after the wall time of the one before."""
+        now = time.perf_counter()
+        if clock["name"]:
+            print(f"  ({clock['name']}: {now - clock['start']:.1f} s)",
+                  flush=True)
+        if text:
+            print(text, flush=True)
+        clock.update(name=text and text[3:].split(":")[0], start=now)
+
     print(f"device: {kind} x {torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     rows = []
     if "build" in phases:
-        print("== phase 1: build", flush=True)
+        header("== phase 1: build")
         phase_build()
     if "kernels" in phases:
-        print("== phase 2: kernels against their plain versions", flush=True)
+        header("== phase 2: kernels against their plain versions")
         rows = phase_kernels(args.seed)
     launches_eval, launches, launches_stream = {}, {}, {}
     launches_speaker, launches_selftrain = {}, {}
     launches_host, launches_search, launches_chain = {}, {}, {}
     launches_variants, launches_encoders = {}, {}
+    launches_ndh, launches_knobs = {}, {}
     if phases & {"main", "compare", "train", "train-compare", "stream",
                  "stream-eval", "profile", "speaker", "speaker-compare",
                  "selftrain", "host", "search", "pretrain",
-                 "pretrain-chain", "variants", "encoders"}:
+                 "pretrain-chain", "variants", "encoders", "ndh", "knobs"}:
         with tempfile.TemporaryDirectory() as root:
             cfg, world = headline_world(root, args.seed, use_pallas="always")
             cfg_train = cfg.replace(**TRAIN)
             if phases & {"main", "compare", "stream-eval"}:
-                print("== phase 3: valid() at headline width", flush=True)
+                header("== phase 3: valid() at headline width")
                 agent, launches_eval, episodic = phase_main(cfg, world,
                                                             args.seed)
                 if "compare" in phases:
-                    print("== phase 4: use_pallas always vs never",
-                          flush=True)
+                    header("== phase 4: use_pallas always vs never")
                     phase_compare(cfg, world, agent, args.seed)
                 # on the host: the later phases' peak memory excludes it
                 state = {k: v.to("cpu", copy=True)
                          for k, v in agent.policy.state_dict().items()}
                 del agent
             if "train" in phases:
-                print("== phase 5: train() at headline width", flush=True)
+                header("== phase 5: train() at headline width")
                 launches = phase_train(cfg_train, world, args.seed, root)
             if "train-compare" in phases:
-                print("== phase 6: training pass, use_pallas always vs "
-                      "never", flush=True)
+                header("== phase 6: training pass, use_pallas always vs "
+                       "never")
                 phase_train_compare(cfg_train, world, args.seed)
             if "stream" in phases:
-                print("== phase 7 (stream): train() under the stream regime "
-                      "at headline width", flush=True)
+                header("== phase 7 (stream): train() under the stream regime "
+                       "at headline width")
                 launches_stream = phase_stream(
                     cfg_train.replace(rollout_mode="stream"), world,
                     args.seed, root)
             if "stream-eval" in phases:
-                print("== phase 8 (stream-eval): valid() under the stream "
-                      "regime, phase 3's weights", flush=True)
+                header("== phase 8 (stream-eval): valid() under the stream "
+                       "regime, phase 3's weights")
                 phase_stream_eval(cfg, world, state, episodic, args.seed)
             if phases & {"speaker", "speaker-compare"}:
-                print("== phase 9 (speaker): train_speaker() and "
-                      "valid_speaker() at the speaker's widths, batch 64",
-                      flush=True)
+                header("== phase 9 (speaker): train_speaker() and "
+                       "valid_speaker() at the speaker's widths, batch 64")
                 launches_speaker, spk_cfg, spk_world, spk_state = \
                     phase_speaker(args.seed, root)
             if "speaker-compare" in phases:
-                print("== phase 10 (speaker-compare): the speaker under "
-                      "use_pallas always vs never", flush=True)
+                header("== phase 10 (speaker-compare): the speaker under "
+                       "use_pallas always vs never")
                 phase_speaker_compare(spk_cfg, spk_world, spk_state)
             if "selftrain" in phases:
-                print("== phase 11 (selftrain): auglistener --selfTrain at "
-                      "headline width", flush=True)
+                header("== phase 11 (selftrain): auglistener --selfTrain at "
+                       "headline width")
                 launches_selftrain = phase_selftrain(cfg_train, args.seed,
                                                      root)
             if "host" in phases:
-                print("== phase 12 (host): the host act/replay rollout at "
-                      "headline width: valid() with submit, train() under "
-                      "device_rollout=never, selfTrain under stream",
-                      flush=True)
+                header("== phase 12 (host): the host act/replay rollout at "
+                       "headline width: valid() with submit, train() under "
+                       "device_rollout=never, selfTrain under stream")
                 launches_host = phase_host(cfg, cfg_train, world, args.seed,
                                            root)
             if "search" in phases:
-                print("== phase 13 (search): beam_valid() at headline width "
-                      "with speaker rescoring", flush=True)
+                header("== phase 13 (search): beam_valid() at headline width "
+                       "with speaker rescoring")
                 launches_search = phase_search(cfg, world, args.seed, root)
             if phases & {"pretrain", "pretrain-chain"}:
-                print("== phase 14 (pretrain): run_pretrain at the headline "
-                      "BERT width", flush=True)
+                header("== phase 14 (pretrain): run_pretrain at the headline "
+                       "BERT width")
                 pt, snap = phase_pretrain(cfg, world, args.seed, root)
             if "pretrain-chain" in phases:
-                print("== phase 15 (pretrain-chain): the headline listener "
-                      "from the pretraining snapshot and from an HF .bin",
-                      flush=True)
+                header("== phase 15 (pretrain-chain): the headline listener "
+                       "from the pretraining snapshot and from an HF .bin")
                 launches_chain = phase_pretrain_chain(
                     cfg_train, world, args.seed, root, pt, snap)
             if "variants" in phases:
-                print("== phase 16 (variants): the DASA variants on the Dic "
-                      "listener at headline width, train() and valid()",
-                      flush=True)
+                header("== phase 16 (variants): the DASA variants on the Dic "
+                       "listener at headline width, train() and valid()")
                 launches_variants = phase_variants(cfg_train, args.seed,
                                                    root)
             if "encoders" in phases:
-                print("== phase 17 (encoders): the plain, legacy and mcatt "
-                      "encoders at their widths, train() and valid()",
-                      flush=True)
+                header("== phase 17 (encoders): the plain, legacy and mcatt "
+                       "encoders at their widths, train() and valid()")
                 launches_encoders = phase_encoders(cfg_train, args.seed,
                                                    root)
+            if "ndh" in phases:
+                header("== phase 18 (ndh): NDH dialogs of 300 tokens at "
+                       "headline width, train(), validndh and a stream "
+                       "window")
+                launches_ndh = phase_ndh(args.seed, root)
+            if "knobs" in phases:
+                header("== phase 19 (knobs): fuse_passes=auto and the remat "
+                       "modes")
+                launches_knobs = phase_knobs(cfg_train, world, args.seed,
+                                             root)
             if "profile" in phases:
-                print("== profile: one eval batch, one training iteration, "
-                      "one stream window, one selfTrain iteration, one "
-                      "search batch, one host-rollout iteration", flush=True)
+                header("== profile: one eval batch, one training iteration, "
+                       "one stream window, one selfTrain iteration, one "
+                       "search batch, one host-rollout iteration")
                 phase_profile(cfg, cfg_train, world, args.seed)
+    header(None)
     if rows:
         print("== phase 2 rows with the launches of phases 3, 5, 7, 9, 11, "
-              "12, 13, 15, 16 and 17", flush=True)
+              "12, 13, 15, 16, 17, 18 and 19", flush=True)
     for r in rows:
         base = r["name"].split("[")[0]
         per_token = ("" if "us_per_token" not in r
@@ -2706,8 +3042,10 @@ def main() -> None:
               f"{launches_host.get(base, 0)} in the host phase, "
               f"{launches_search.get(base, 0)} in the searches, "
               f"{launches_chain.get(base, 0)} in the pretrained chain, "
-              f"{launches_variants.get(base, 0)} in the variants and "
-              f"{launches_encoders.get(base, 0)} in the encoders"
+              f"{launches_variants.get(base, 0)} in the variants, "
+              f"{launches_encoders.get(base, 0)} in the encoders, "
+              f"{launches_ndh.get(base, 0)} in NDH and "
+              f"{launches_knobs.get(base, 0)} in the knobs"
               f"{per_token}",
               flush=True)
     out = []
@@ -2728,6 +3066,8 @@ def main() -> None:
                     "launches_pretrain_chain": launches_chain.get(base, 0),
                     "launches_variants": launches_variants.get(base, 0),
                     "launches_encoders": launches_encoders.get(base, 0),
+                    "launches_ndh": launches_ndh.get(base, 0),
+                    "launches_knobs": launches_knobs.get(base, 0),
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -37,10 +37,19 @@ parity with the JAX package holds with dropout off and the noise passed
 in.  Under ``rollout_mode="stream"`` training and evaluation run the
 continuous-batching windows of ``agents/stream.py`` instead.  selfTrain
 back-translation (a ``speaker`` handed to ``accumulate_gradient``)
-relabels each batch before its pass.  The combined 2B-wide program
-(``fuse_passes="auto"``, which the stream regime overrides, as in the JAX
-agent), ``remat`` other than ``never`` and data parallel raise
-``NotImplementedError`` (ROADMAP.md).
+relabels each batch before its pass.
+
+``fuse_passes="auto"`` is a documented no-op: the JAX agent's combined
+2B-wide program (``device_rollout_combined``, seq2seq.py:1246-1375) halves
+the XLA dispatches of the episodic pair, which eager torch does not
+have, so the port runs the split teacher + sampled pair, whose gradients
+the combined program sums (``tests/test_torch_knobs.py`` holds JAX's
+combined program against it).  ``remat`` recomputes blocks of a pass
+in its backward (``models/layers.py:checkpointed``) where the JAX agent
+applies ``jax.checkpoint``: the batched replay percept, the per-step
+percept, or the whole step (:meth:`Seq2SeqAgent._recompute`).  Every pass
+runs its backward inside the cast-once block, so a recompute reads the
+same bf16 weight copies as the forward.
 """
 
 from __future__ import annotations
@@ -69,7 +78,11 @@ from dasa_tpu_torch.models.featurize import (
     assemble_candidates,
     assemble_pano,
 )
-from dasa_tpu_torch.models.layers import NEG_INF, cast_params_once
+from dasa_tpu_torch.models.layers import (
+    NEG_INF,
+    cast_params_once,
+    checkpointed,
+)
 from dasa_tpu_torch.models.policy import (
     DasaPolicy,
     DecoderState,
@@ -560,23 +573,27 @@ class Seq2SeqAgent(StreamMixin):
     def iter_count(self) -> int:
         return self.optimizer.iteration
 
-    def _require_ported_training(self) -> None:
-        """Training options of the JAX agent that this port leaves out:
-        ``remat``, and the combined program, which only the episodic
-        device pair would run."""
-        cfg = self.cfg
-        missing = []
-        if (cfg.fuse_passes != "never" and self.use_device_rollout()
-                and not self.use_stream_rollout()):
-            missing.append("the combined 2B-wide program (fuse_passes=auto)")
-        if cfg.remat != "never":
-            missing.append(f"remat={cfg.remat!r}")
-        if missing:
-            raise NotImplementedError(
-                "Seq2SeqAgent training: " + "; ".join(missing)
-                + " is not ported (ROADMAP.md); the port trains the "
-                "episodic and streamed device regimes and the host "
-                "act/replay rollout")
+    def _recompute(self, site: str, n_steps: int) -> bool:
+        """Whether :func:`models.layers.checkpointed` recomputes a block
+        of a pass under ``cfg.remat``, where the JAX agent applies
+        ``jax.checkpoint``.  ``site`` is ``"replay"``, the batched percept
+        of a replay of ``n_steps`` steps (seq2seq.py:441-450: ``always`` /
+        ``percept`` / ``dots``, ``auto`` past 16 steps); ``"percept"``, the
+        per-step percept of the fused pass and the stream window
+        (:850-851, stream.py:332-333: ``percept``); or ``"step"``, their
+        whole step over ``n_steps`` steps (:1000-1005, stream.py:493-498:
+        ``always`` / ``dots``, ``auto`` past 16 steps).  ``dots`` recomputes
+        the same blocks as ``always``: JAX's policy keeps the matmul
+        outputs, which an eager selective checkpoint would keep beside
+        what autograd saves anyway."""
+        remat = self.cfg.remat
+        if site == "replay":
+            return remat in ("always", "percept", "dots") or (
+                remat == "auto" and n_steps > 16)
+        if site == "percept":
+            return remat == "percept"
+        return remat in ("always", "dots") or (remat == "auto"
+                                               and n_steps > 16)
 
     def _rollout_generator(self) -> torch.Generator:
         """The generator of the next rollout, reseeded from (seed, rollout
@@ -742,8 +759,9 @@ class Seq2SeqAgent(StreamMixin):
         then the decoder steps through the recorded observations and
         actions.  ``gen`` is a generator or the host rollout's
         :class:`PassStreams`; ``pm_target`` (B,) the episode-start
-        progress, needed by the progress-monitor terms.  Returns (loss,
-        logs)."""
+        progress, needed by the progress-monitor terms.  Under ``remat``
+        the batched percept is recomputed in the backward
+        (:meth:`_recompute`).  Returns (loss, logs)."""
         cfg, policy = self.cfg, self.policy
         if pm_target is None and (cfg.pred_pm
                                   or cfg.agent_type == "advanced"):
@@ -756,13 +774,18 @@ class Seq2SeqAgent(StreamMixin):
                                     deterministic=False, gen=streams.text)
         flat = {key: torch.cat([stacked[key], final_sobs[key][None]]).flatten(
             0, 1) for key in REC_KEYS}
-        percepts = policy.percept_step(
-            {key: val.repeat(rep, *[1] * (val.dim() - 1))
-             for key, val in cached.items()},
-            valid.repeat(rep, 1), seq_len.repeat(rep),
-            make_step_inputs(cfg, self.tables, flat), lstm_kernel=False,
-            deterministic=False, is_test=False, env_noise=env_noise,
-            gen=streams.steps(rep, 0))
+
+        def percept_all(g):
+            return policy.percept_step(
+                {key: val.repeat(rep, *[1] * (val.dim() - 1))
+                 for key, val in cached.items()},
+                valid.repeat(rep, 1), seq_len.repeat(rep),
+                make_step_inputs(cfg, self.tables, flat), lstm_kernel=False,
+                deterministic=False, is_test=False, env_noise=env_noise,
+                gen=g)
+
+        percepts = checkpointed(percept_all, streams.steps(rep, 0),
+                                self._recompute("replay", n_steps))
 
         def percept_at(t):
             def part(x):
@@ -809,7 +832,9 @@ class Seq2SeqAgent(StreamMixin):
         all-ended cond, :1013-1017: the remaining steps add nothing); then
         the bootstrap value at the final state and the reversed A2C pass.
         ``record``, when given, receives the episode in the replay's form
-        (tests replay it).  Returns (loss, logs)."""
+        (tests replay it).  Under ``remat`` the per-step percept or the
+        whole step is recomputed in the backward (:meth:`_recompute`).
+        Returns (loss, logs)."""
         cfg, policy = self.cfg, self.policy
         arrays = dev.arrays()
         k = cfg.max_candidates
@@ -822,54 +847,70 @@ class Seq2SeqAgent(StreamMixin):
         width = decoder_state_width(cfg)
         zeros = torch.zeros(batch, width, dtype=self.dtype,
                             device=self.device)
-        state = DecoderState(zeros, zeros, zeros)
-        node, view = ep["node0"], ep["view0"]
-        ended = torch.zeros_like(node, dtype=torch.bool)
+        carry = (ep["node0"], ep["view0"],
+                 torch.zeros_like(ep["node0"], dtype=torch.bool),
+                 DecoderState(zeros, zeros, zeros))
         dropfeat = env_noise is not None
-
-        def policy_forward(sobs, state):
-            inputs = make_step_inputs(cfg, self.tables, sobs)
-            return policy.policy_step(
-                cached, valid, seq_len, inputs, state, sobs["is_first"],
-                lstm_kernel=self._lstm_kernel, deterministic=False,
-                is_test=False, env_noise=env_noise, gen=gen)
-
+        remat_percept = self._recompute("percept", cfg.max_action)
+        remat_step = self._recompute("step", cfg.max_action)
         pm_target = start_progress(dev, ep)
 
-        outs, rewards, masks, recs = [], [], [], []
-        for t in range(cfg.max_action):
-            if bool(ended.all()):
-                break
+        def policy_forward(g, sobs, state):
+            inputs = make_step_inputs(cfg, self.tables, sobs)
+            percept = checkpointed(
+                lambda gp: policy.percept_step(
+                    cached, valid, seq_len, inputs,
+                    lstm_kernel=self._lstm_kernel, deterministic=False,
+                    is_test=False, env_noise=env_noise, gen=gp),
+                g, remat_percept)
+            return policy.decode_from_percept(
+                percept, valid, state, sobs["is_first"],
+                deterministic=False, already_dropfeat=dropfeat, gen=g)
+
+        def observe(node, view, first: bool):
             sobs = device_obs(arrays, node, view, goal, start, total_dist, k)
-            sobs["is_first"] = torch.full_like(ended, t == 0)
-            state, logit, value, aux = policy_forward(sobs, state)
+            sobs["is_first"] = torch.full_like(node, first, dtype=torch.bool)
+            return sobs
+
+        def step(g, node, view, ended, state, *, t):
+            sobs = observe(node, view, t == 0)
+            state, logit, value, aux = policy_forward(g, sobs, state)
             masked = logit.detach().float().masked_fill(sobs["logit_mask"],
                                                         NEG_INF)
             if feedback == "sample":
                 action = torch.multinomial(torch.softmax(masked, dim=-1), 1,
-                                           generator=gen)[:, 0]
+                                           generator=g)[:, 0]
             elif feedback == "argmax":
                 action = masked.argmax(dim=-1)
             else:
                 raise ValueError(feedback)
-            outs.append(self._step_outs(logit, value, sobs, action, ~ended,
-                                        aux, pm_target))
-            masks.append((~ended).float())
-            if record is not None:
-                recs.append(_record(sobs, ended, t == 0,
-                                    torch.minimum(action, sobs["cand_n"])))
-            node, view, ended, reward = _env_and_reward(
+            outs = self._step_outs(logit, value, sobs, action, ~ended, aux,
+                                   pm_target)
+            outs["rl_mask"] = (~ended).float()
+            node, view, ended, outs["reward"] = _env_and_reward(
                 arrays, sobs, node, view, action, ended, goal_local)
-            rewards.append(reward)
-        rewards, masks = torch.stack(rewards), torch.stack(masks)
-        sobs = device_obs(arrays, node, view, goal, start, total_dist, k)
-        sobs["is_first"] = torch.zeros_like(ended)
+            return sobs, action, outs, (node, view, ended, state)
+
+        outs, recs = [], []
+        for t in range(cfg.max_action):
+            if bool(carry[2].all()):
+                break
+            sobs, action, out, carry = checkpointed(
+                functools.partial(step, t=t), gen, remat_step, *carry)
+            if record is not None:
+                recs.append(_record(sobs, out["rl_mask"] == 0, t == 0,
+                                    torch.minimum(action, sobs["cand_n"])))
+            outs.append(out)
+        node, view, ended, state = carry
+        rewards = torch.stack([o.pop("reward") for o in outs])
+        masks = torch.stack([o.pop("rl_mask") for o in outs])
+        sobs = observe(node, view, False)
         g0 = torch.zeros(batch, device=self.device)
         if not bool(ended.all()):
             # A2C bootstrap at t = T (seq2seq.py:1144-1153); its value is
             # a constant of the loss
             with torch.no_grad():
-                _, _, last_value, _ = policy_forward(sobs, state)
+                _, _, last_value, _ = policy_forward(gen, sobs, state)
             g0 = torch.where(ended, g0, last_value.float())
         if record is not None:
             record.update(stacked=_stack(recs), rewards=rewards,
@@ -895,7 +936,6 @@ class Seq2SeqAgent(StreamMixin):
         back-translation, agent_dg.py:656-675).  ``env_noise`` replaces
         the drawn env-drop noise; ``record`` receives a sampled / argmax
         episode (both for tests)."""
-        self._require_ported_training()
         feedback = feedback or self.cfg.feedback
         train_rl = train_rl and feedback == "sample"
         dev, ep, instr, valid, seq_len, gen, noise = \
@@ -918,7 +958,7 @@ class Seq2SeqAgent(StreamMixin):
                     *weights, record=record)
                 if record is not None:
                     record.update(instr=instr, valid=valid, seq_len=seq_len)
-        loss.backward()
+            loss.backward()
         self._env_steps_log.append(logs.pop("env_steps"))
         for key, val in logs.items():
             self.logs[key].append(val.detach())
@@ -1007,8 +1047,6 @@ class Seq2SeqAgent(StreamMixin):
         # teacher / argmax feedback never trains RL (agent_dg.py:643-644)
         train_rl = train_rl and feedback == "sample"
         training = train_ml is not None or train_rl
-        if training:
-            self._require_ported_training()
         env = self.env
         obs = env.reset() if reset else env._get_obs()
         batch = obs.batch_size()
@@ -1124,7 +1162,7 @@ class Seq2SeqAgent(StreamMixin):
                     rep["noise"], *rep["weights"],
                     pm_target=(None if pm_target is None
                                else self._put(pm_target)))
-            loss.backward()
+                loss.backward()
             for key, val in logs.items():
                 self.logs[key].append(val.detach())
             self.losses.append(loss.detach())
@@ -1163,7 +1201,8 @@ class Seq2SeqAgent(StreamMixin):
         "never"``, ``submit``, and selfTrain under stream, whose slots
         refill mid-window (seq2seq.py:1924-1932).  A ``speaker`` relabels
         each pass's batch first (selfTrain); its decode records no graph,
-        so the speaker's parameters get no gradient."""
+        so the speaker's parameters get no gradient.  ``fuse_passes="auto"``
+        runs the same split pair (see the module docstring)."""
         cfg = self.cfg
         if ml_weight is None:
             ml_weight = cfg.ml_weight
@@ -1243,9 +1282,10 @@ class Seq2SeqAgent(StreamMixin):
         files of per-component dicts; the reference names the AdaIN
         component ``adaIn``), and the JAX package's: its msgpack
         ``{"epoch", "params", "opt_state"}`` and the round-1 pickle of flax
-        bytes.  With ``load_optim`` the optimizer states of a torch file
-        come back too; a JAX file's optax state has no torch counterpart
-        and is not restored (a NOTICE says so).  Returns the checkpoint's
+        bytes.  With ``load_optim`` the optimizer states come back too: a
+        torch file's as saved, a JAX file's optax state through
+        :meth:`ComponentOptimizer.restore_optax` (a NOTICE says when
+        there is none, or it does not fit).  Returns the checkpoint's
         epoch."""
         fmt = flax_msgpack.file_format(path)
         if fmt == "torch":
@@ -1280,14 +1320,20 @@ class Seq2SeqAgent(StreamMixin):
                   f"(kept init for {len(skipped)}: {skipped[:5]}...; "
                   f"ignored {len(unused)} checkpoint-only keys)", flush=True)
         self.policy.load_state_dict(merged)
-        if self.cfg.load_optim and fmt != "torch":
-            print("NOTICE: optimizer state not restored (a JAX checkpoint's "
-                  "optax state has no torch counterpart)", flush=True)
-        elif self.cfg.load_optim:
+        if self.cfg.load_optim:
             try:
-                for name, opt in self.optimizer.optimizers.items():
-                    opt.load_state_dict(blob[name]["optimizer"])
-                    self.optimizer.iteration = blob[name]["iteration"]
+                if fmt == "torch":
+                    for name, opt in self.optimizer.optimizers.items():
+                        opt.load_state_dict(blob[name]["optimizer"])
+                        self.optimizer.iteration = blob[name]["iteration"]
+                else:
+                    opt_state = blob.get("opt_state")
+                    if opt_state is None:
+                        raise KeyError("the file holds no opt_state")
+                    if isinstance(opt_state, bytes):  # round-1 pickle
+                        opt_state = flax_msgpack.msgpack_restore(opt_state)
+                    self.optimizer.restore_optax(opt_state,
+                                                 policy_state_dict_from_jax)
             except (KeyError, ValueError) as e:  # component drift: fresh
                 print(f"NOTICE: optimizer state not restored ({e})",
                       flush=True)

@@ -35,10 +35,12 @@ from dasa_tpu_torch.train.optim import (
     clip_grad_global_norm_,
     fill_missing_grads_,
     make_optimizer,
+    restore_optax_state,
 )
 from dasa_tpu_torch.utils import flax_msgpack
 from dasa_tpu_torch.utils.angles import all_point_angle_feature
 from dasa_tpu_torch.utils.device import resolve_device
+from dasa_tpu_torch.utils.jax_params import speaker_state_dict_from_jax
 from dasa_tpu_torch.utils.vocab import PAD_IDX, Tokenizer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -91,8 +93,6 @@ class SpeakerAgent:
     def load_jax_params(self, params) -> None:
         """Load the JAX ``SpeakerModel`` param tree (nested dicts of
         arrays, with or without the top-level ``params`` key)."""
-        from dasa_tpu_torch.utils.jax_params import speaker_state_dict_from_jax
-
         self.model.load_state_dict(
             {k: torch.as_tensor(v)
              for k, v in speaker_state_dict_from_jax(params).items()})
@@ -437,15 +437,22 @@ class SpeakerAgent:
         """Restore a :meth:`save` checkpoint (the optimizer's state too
         under ``load_optim``), or the JAX package's speaker file (a pickle
         of ``{"epoch", "params": flax bytes, "opt_state"}``, whose optax
-        state is not restored: a NOTICE says so); returns its epoch."""
+        state ``train/optim.py:restore_optax_state`` carries into the
+        optimizer under ``load_optim``); returns its epoch."""
         fmt = flax_msgpack.file_format(path)
         if fmt == "pickle":
             blob = flax_msgpack.load_plain_pickle(path)
             self.load_jax_params(flax_msgpack.msgpack_restore(blob["params"]))
             if self.cfg.load_optim:
-                print("NOTICE: optimizer state not restored (a JAX "
-                      "checkpoint's optax state has no torch counterpart)",
-                      flush=True)
+                if blob.get("opt_state") is None:
+                    print("NOTICE: optimizer state not restored (the file "
+                          "holds no opt_state)", flush=True)
+                else:
+                    restore_optax_state(
+                        self.optimizer,
+                        {p: n for n, p in self.model.named_parameters()},
+                        flax_msgpack.msgpack_restore(blob["opt_state"]),
+                        speaker_state_dict_from_jax)
             return int(blob["epoch"])
         if fmt != "torch":
             raise ValueError(f"{path!r}: a {fmt} file is no speaker "

@@ -30,8 +30,12 @@ under stream does not stream: its relabelled passes fall back to the host
 act/replay pair (``Seq2SeqAgent.accumulate_gradient``), as in the JAX
 agent.  Not ported (ROADMAP.md): the mesh window (``_stream_shard_map``)
 and ``precompile_stream`` (JAX AOT; eager torch compiles nothing).
-``stream_unroll`` is a ``lax.scan`` codegen knob with no effect here.  The
-auxiliary loss terms (back head, progress monitor, agent_advanced's
+``stream_unroll`` is a ``lax.scan`` codegen knob with no effect here.
+``remat`` recomputes the per-step percept (``percept``) or the whole
+step (``always`` and ``dots``, ``auto`` past 16 steps) in the backward,
+where the JAX window checkpoints them
+(``dasa_tpu/agents/stream.py:332-333, 493-498``).  The auxiliary loss
+terms (back head, progress monitor, agent_advanced's
 progress head, the MT agent's KL) ride the teacher half's ML loss, per
 episode like the rest of it (``dasa_tpu/agents/stream.py:454-562``).
 """
@@ -49,7 +53,7 @@ from dasa_tpu_torch.env.device_env import (
     device_transition,
     episode_inputs,
 )
-from dasa_tpu_torch.models.layers import NEG_INF
+from dasa_tpu_torch.models.layers import NEG_INF, checkpointed
 from dasa_tpu_torch.models.policy import DecoderState, decoder_state_width
 from dasa_tpu_torch.sim.engine import micro_trajectory
 from dasa_tpu_torch.utils.misc import Timer
@@ -245,7 +249,10 @@ class StreamMixin:
             table["instr"], table["valid"], table["seq_len"],
             self._lstm_kernel, deterministic=eval_mode, gen=gen)
 
-        def forward(slot_ep, node, view, state, is_first, noise):
+        remat_percept = not eval_mode and self._recompute("percept", S)
+        remat_step = not eval_mode and self._recompute("step", S)
+
+        def forward(g, slot_ep, node, view, state, is_first, noise):
             """The policy step of the slots' current episodes."""
             valid_e = table["valid"][slot_ep]
             seqlen_e = table["seq_len"][slot_ep]
@@ -254,31 +261,25 @@ class StreamMixin:
                               total_dist_tab[slot_ep], k)
             sobs["is_first"] = is_first
             inputs = make_step_inputs(cfg, self.tables, sobs)
-            percept = policy.percept_step(
-                {key: x[slot_ep] for key, x in cached_tab.items()},
-                valid_e, seqlen_e, inputs, lstm_kernel=self._lstm_kernel,
-                deterministic=eval_mode, is_test=eval_mode,
-                env_noise=noise[:, None, :] if use_noise else None, gen=gen)
+            percept = checkpointed(
+                lambda gp: policy.percept_step(
+                    {key: x[slot_ep] for key, x in cached_tab.items()},
+                    valid_e, seqlen_e, inputs, lstm_kernel=self._lstm_kernel,
+                    deterministic=eval_mode, is_test=eval_mode,
+                    env_noise=noise[:, None, :] if use_noise else None,
+                    gen=gp),
+                g, remat_percept)
             new_state, logit, value, aux = policy.decode_from_percept(
                 percept, valid_e, state, is_first,
                 deterministic=eval_mode, already_dropfeat=use_noise,
-                gen=gen)
+                gen=g)
             masked = logit.float().masked_fill(sobs["logit_mask"], NEG_INF)
             return sobs, new_state, masked, value, aux
 
-        slot_ep = slots.clone()
-        alive, age = carry["alive"], carry["age"]
-        node, view = carry["node"], carry["view"]
-        state = DecoderState(carry["h"], carry["c"], carry["h1"])
-        noise = carry["noise"]
-        cur = torch.zeros(2, dtype=torch.long, device=device)
-        outs: Dict[str, list] = {}
-
-        def put(**kw):
-            for key, val in kw.items():
-                outs.setdefault(key, []).append(val)
-
-        for _t in range(S):
+        def step(g, slot_ep, alive, age, node, view, state, noise, cur):
+            """One window step: the refill, the policy, the transition and
+            the step's outs.  Returns (the next step's carry, outs)."""
+            out = {}
             # ---- refill dead slots from the pool, half by half
             need = ~alive
             take = torch.zeros_like(need)
@@ -301,7 +302,7 @@ class StreamMixin:
             alive = alive | take
             if use_noise:
                 # a fresh env-drop row per episode, drawn on refill
-                keep = torch.rand(noise.shape, generator=gen,
+                keep = torch.rand(noise.shape, generator=g,
                                   device=device) < keep_p
                 noise = torch.where(take[:, None],
                                     keep.to(noise.dtype) / keep_p, noise)
@@ -311,12 +312,12 @@ class StreamMixin:
             trunc = alive & (age >= T)
             real = alive & ~trunc
 
-            sobs, state, masked, value, aux = forward(slot_ep, node, view,
+            sobs, state, masked, value, aux = forward(g, slot_ep, node, view,
                                                       state, take, noise)
             logp = torch.log_softmax(masked, dim=-1)
             if feedback == "sample":
                 a_pol = torch.multinomial(torch.softmax(masked.detach(), -1),
-                                          1, generator=gen)[:, 0]
+                                          1, generator=g)[:, 0]
             elif feedback == "argmax":
                 a_pol = masked.detach().argmax(dim=-1)
             else:
@@ -335,36 +336,51 @@ class StreamMixin:
             done = stop & real
             reward = torch.where(real, torch.where(done, stop_r, move_r),
                                  0.0)
-            put(reward=reward, done=done, trunc=trunc, real=real,
-                env_steps=real.sum(), refills=took, starved=starved)
+            out.update(reward=reward, done=done, trunc=trunc, real=real,
+                       env_steps=real.sum(), refills=took, starved=starved)
             if not eval_mode:
                 ce = -logp.gather(1, sobs["teacher"][:, None])[:, 0]
-                put(ce=torch.where(real, ce, torch.zeros_like(ce)),
-                    logp_a=logp.gather(1, a_rec[:, None])[:, 0],
-                    ent=_entropy(logp, logp.exp()), value=value.float())
+                out.update(ce=torch.where(real, ce, torch.zeros_like(ce)),
+                           logp_a=logp.gather(1, a_rec[:, None])[:, 0],
+                           ent=_entropy(logp, logp.exp()),
+                           value=value.float())
                 if cfg.pred_back:
                     bce = back_ce(aux, sobs)
-                    put(back_ce=torch.where(real, bce, torch.zeros_like(bce)))
+                    out["back_ce"] = torch.where(real, bce,
+                                                 torch.zeros_like(bce))
                 if cfg.pred_pm:
-                    put(pm_sq=(aux["pm_score"].float()
-                               - pm_target_tab[slot_ep]) ** 2)
+                    out["pm_sq"] = (aux["pm_score"].float()
+                                    - pm_target_tab[slot_ep]) ** 2
                 if cfg.agent_type == "advanced":
-                    put(adv_sq=(aux["pred_progress"].float()
-                                - pm_target_tab[slot_ep]) ** 2)
+                    out["adv_sq"] = (aux["pred_progress"].float()
+                                     - pm_target_tab[slot_ep]) ** 2
                 if cfg.agent_type == "mt":
                     # the teacher half's live rows; a per-step local mean
                     kl_row, cnt_row = mt_kl_rows(
                         logp, sobs["teacher"], sobs["cand_point_id"],
                         sobs["cand_n"],
                         real & ml_rows & (sobs["teacher"] < sobs["cand_n"]))
-                    put(kl=kl_row.sum() / cnt_row.sum().clamp(min=1.0))
+                    out["kl"] = kl_row.sum() / cnt_row.sum().clamp(min=1.0)
             if record:
-                put(rec_action=a_rec, rec_node=node, rec_view=view,
-                    rec_uid=table["uid"][slot_ep], rec_take=take)
+                out.update(rec_action=a_rec, rec_node=node, rec_view=view,
+                           rec_uid=table["uid"][slot_ep], rec_take=take)
 
             alive = real & ~stop
             age = torch.where(real, age + 1, age)
-            node, view = new_node, new_view
+            return (slot_ep, alive, age, new_node, new_view, state, noise,
+                    cur), out
+
+        step_carry = (slots.clone(), carry["alive"], carry["age"],
+                      carry["node"], carry["view"],
+                      DecoderState(carry["h"], carry["c"], carry["h1"]),
+                      carry["noise"],
+                      torch.zeros(2, dtype=torch.long, device=device))
+        outs: Dict[str, list] = {}
+        for _t in range(S):
+            step_carry, out = checkpointed(step, gen, remat_step, *step_carry)
+            for key, val in out.items():
+                outs.setdefault(key, []).append(val)
+        slot_ep, alive, age, node, view, state, noise, cur = step_carry
         grid = {key: torch.stack(val) for key, val in outs.items()}
 
         logs = {"env_steps": grid["env_steps"].sum(),
@@ -392,7 +408,7 @@ class StreamMixin:
             # ---- window-edge bootstrap: the critic's value for slots
             # still mid-flight (a constant of the loss)
             with torch.no_grad():
-                _, _, _, v_edge, _ = forward(slot_ep, node, view, state,
+                _, _, _, v_edge, _ = forward(gen, slot_ep, node, view, state,
                                              torch.zeros_like(alive), noise)
             g_init = torch.where(alive, v_edge.float(), 0.0)
             alive = alive & (age < T)
@@ -603,7 +619,6 @@ class StreamMixin:
         (the flow counters are read lagged); ``record=True`` also keeps
         the slot-time grids in ``st.records``, as tensors on the device
         (tests, and the on-card check that no episode is taken twice)."""
-        self._require_ported_training()
         cfg = self.cfg
         st = self._stream_host()
         fresh, f_n, sent = self._stage_stream_fresh(st)

@@ -16,6 +16,8 @@
     python -m dasa_tpu_torch.cli --train pretrain ...   # MLM + next action
     python -m dasa_tpu_torch.cli --train listener
         --pretrain_model_name <dir or checkpoint> ...   # pretrained encoder
+    python -m dasa_tpu_torch.cli --train ndh --history all ...  # NDH
+    python -m dasa_tpu_torch.cli --train validndh [--load <ckpt>]
 
 The flags are ``train.py``'s (the reference's spellings and snake_case),
 parsed by the port's copy of the config.  ``--device`` picks the device
@@ -24,8 +26,11 @@ parsed by the port's copy of the config.  ``--device`` picks the device
 ``--beam`` / ``beamvalid``.  ``--pretrain_model_name`` takes an HF
 directory or ``pytorch_model.bin`` (the DicAdd / DicPM and Vic families)
 or a Pretrainer ``checkpoint-N`` of the port or of the JAX package
-(``utils/pretrain_load.py``).  The NDH modes come with a later slice
-(ROADMAP.md).
+(``utils/pretrain_load.py``).  ``--train ndh`` / ``ndhlistener`` train and
+``--train validndh`` validates the listener on CVDN dialogs
+(``NDH_{split}.json`` in ``--data_dir``; ``--path_type`` and ``--history``
+pick the supervision path and the dialog context, and set
+``max_action`` / ``max_input`` unless they are given).
 """
 
 from __future__ import annotations
@@ -73,6 +78,12 @@ def main(argv=None) -> None:
         from dasa_tpu_torch.pretrain.trainer import run_pretrain
 
         run_pretrain(cfg, device=known.device)
+    elif cfg.train in ("ndh", "ndhlistener"):
+        world = trainer.World(cfg, ndh=True)
+        trainer.train(cfg, world=world, device=known.device)
+    elif cfg.train == "validndh":
+        world = trainer.World(cfg, ndh=True)
+        trainer.valid(cfg, world=world, device=known.device)
     else:
         raise NotImplementedError(
             f"--train {cfg.train} is not ported yet (ROADMAP.md)")

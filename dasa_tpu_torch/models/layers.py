@@ -6,6 +6,8 @@ reference's torch ``state_dict``; each layer computes in its
 ``compute_dtype`` (flax's ``Dense(dtype=...)`` rule: inputs, weights and
 biases are cast first).  Dropout takes an explicit ``torch.Generator``: no
 generator means no dropout (flax's ``deterministic=True``).
+:func:`checkpointed` is the agents' ``remat`` (``jax.checkpoint``): a
+block recomputed in the backward, drawing the same masks again.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dasa_tpu_torch.ops.lstm import bilstm_scan_fn, lstm_scan_fn
 from dasa_tpu_torch.ops.shift_attention import shift_attend_fn
@@ -46,6 +49,49 @@ def dropout(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
     return torch.where(u >= rate, x / (1.0 - rate), 0.0)
 
 
+def _gen_state(gen):
+    if gen is None:
+        return None
+    if isinstance(gen, torch.Generator):
+        return gen.get_state()
+    return [g.get_state() for g in gen]
+
+
+def _gen_restored(gen, state):
+    """A copy of ``gen`` (a generator or a list of them) at ``state``."""
+    if gen is None:
+        return None
+    if isinstance(gen, torch.Generator):
+        out = torch.Generator(device=gen.device)
+        out.set_state(state)
+        return out
+    return [_gen_restored(g, st) for g, st in zip(gen, state)]
+
+
+def checkpointed(fn, gen, recompute: bool, *args):
+    """``fn(gen, *args)``, under ``torch.utils.checkpoint`` when
+    ``recompute`` (every activation of ``fn`` recomputed in the backward),
+    plainly otherwise.  The checkpoint is non-reentrant, so grad mode
+    stays on in the forward and the kernels' autograd Functions run in
+    both passes.  ``gen`` (None, a generator or a list) is what ``fn``
+    draws from: its state is taken before the forward, and the recompute
+    draws from a copy restored to it, so the backward sees the forward's
+    dropout masks and samples while ``gen`` itself goes on
+    (``checkpoint`` restores only the default generators)."""
+    if not recompute:
+        return fn(gen, *args)
+    state = _gen_state(gen)
+    calls = []
+
+    def run(*inner):
+        calls.append(None)
+        return fn(gen if len(calls) == 1 else _gen_restored(gen, state),
+                  *inner)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 @contextlib.contextmanager
 def cast_params_once(module: nn.Module, dtype: torch.dtype):
     """Within the block, every use of a trainable f32 parameter of
@@ -71,11 +117,11 @@ def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     copy is used.  Outside autograd the cast copy is kept on the
     parameter and reused until the parameter changes (its version, device
     or storage), so inference does not re-cast every weight every step."""
-    if p.dtype == dtype:
-        return p
     hit = getattr(p, "_pass_cast", None)
     if hit is not None and hit.dtype == dtype:
         return hit
+    if p.dtype == dtype:
+        return p
     if torch.is_grad_enabled() and p.requires_grad:
         return p.to(dtype)
     key = (p._version, p.data_ptr(), dtype)

@@ -25,6 +25,7 @@ refuse inputs that require grad while grad mode is on.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -380,12 +381,47 @@ class LstmScanFn(torch.autograd.Function):
                 dc0.to(c0.dtype), dwh.to(wh.dtype))
 
 
-def _in_row_chunks(fn, axis, xw, mask, h0, c0, wh):
-    """``fn`` over near-equal chunks of at most FWD_MAX_B (= BWD_MAX_B)
-    batch rows, each through the same kernels (the rows are independent
+@functools.lru_cache(maxsize=None)
+def max_chunk_rows(t_len: int, hd: int, dirs: int, n_sm: int) -> int:
+    """The most batch rows one launch takes at this T, H and direction
+    count on a card of ``n_sm`` SMs: the largest b <= FWD_MAX_B such that
+    :func:`fwd_plan` and :func:`bwd_plan` take every b' <= b (the kernels
+    hold the (T, B) mask in shared memory, so a long T leaves room for
+    fewer rows: 48 at T 300, H 1024 on an H100).  Raises the plan's error
+    when not even one row fits."""
+    best = 0
+    for b in range(1, FWD_MAX_B + 1):
+        try:
+            fwd_plan(t_len, b, hd, n_sm, dirs)
+            bwd_plan(t_len, b, hd, n_sm)
+        except ValueError:
+            if best == 0:
+                raise
+            break
+        best = b
+    return best
+
+
+def row_chunks(b: int, t_len: int, hd: int, dirs: int, n_sm: int) -> int:
+    """How many near-equal chunks ``b`` batch rows run in
+    (:func:`max_chunk_rows` rows at most each)."""
+    return -(-b // max_chunk_rows(t_len, hd, dirs, n_sm))
+
+
+def _chunks_of(xw, axis, hd, dirs) -> int:
+    """Chunks of :func:`_in_row_chunks` for this call: by the plans on the
+    card, by FWD_MAX_B rows on the CPU (the plain version has no plan)."""
+    b = xw.shape[axis]
+    if xw.device.type != "cuda":
+        return -(-b // FWD_MAX_B)
+    return row_chunks(b, xw.shape[axis - 1], hd, dirs, _build.sm_count(xw))
+
+
+def _in_row_chunks(fn, n, axis, xw, mask, h0, c0, wh):
+    """``fn`` over ``n`` near-equal chunks of the batch rows, each through
+    the same kernels and its own autograd node (the rows are independent
     recurrences); ``axis`` is the batch axis of xw and mask, h0 and c0
     have theirs one before it."""
-    n = -(-xw.shape[axis] // FWD_MAX_B)
     parts = zip(*(x.tensor_split(n, dim) for x, dim in
                   ((xw, axis), (mask, axis), (h0, axis - 1), (c0, axis - 1))))
     outs = [fn(*p, wh) for p in parts]
@@ -395,10 +431,12 @@ def _in_row_chunks(fn, axis, xw, mask, h0, c0, wh):
 def lstm_scan_fn(xw, mask, h0, c0, wh) -> Tuple[torch.Tensor, torch.Tensor]:
     """``LstmScanFn.apply``: the masked recurrence with gradients.  A pure
     forward (grad mode off, or no input requiring grad) calls
-    :func:`lstm_scan` directly, as :func:`bilstm_scan_fn` does.  More than
-    FWD_MAX_B batch rows run in chunks (:func:`_in_row_chunks`)."""
-    if xw.shape[1] > FWD_MAX_B:
-        return _in_row_chunks(lstm_scan_fn, 1, xw, mask, h0, c0, wh)
+    :func:`lstm_scan` directly, as :func:`bilstm_scan_fn` does.  More batch
+    rows than one launch takes at this T (:func:`max_chunk_rows`) run in
+    chunks (:func:`_in_row_chunks`)."""
+    n = _chunks_of(xw, 1, h0.shape[-1], 1)
+    if n > 1:
+        return _in_row_chunks(lstm_scan_fn, n, 1, xw, mask, h0, c0, wh)
     if not (torch.is_grad_enabled()
             and any(x.requires_grad for x in (xw, h0, c0, wh))):
         return lstm_scan(xw, mask, h0, c0, wh)
@@ -484,10 +522,11 @@ def bilstm_scan_fn(xw, mask, h0, c0, wh) -> Tuple[torch.Tensor, torch.Tensor]:
     (2, H, 4H) tensor or a pair of (H, 4H) tensors.  A pure forward (grad
     mode off, or no input requiring grad) calls :func:`bilstm_scan`
     directly: no gate activations are written and no autograd node
-    holds the outputs.  More than FWD_MAX_B batch rows run in chunks
-    (:func:`_in_row_chunks`)."""
-    if xw.shape[2] > FWD_MAX_B:
-        return _in_row_chunks(bilstm_scan_fn, 2, xw, mask, h0, c0, wh)
+    holds the outputs.  More batch rows than one launch takes at this T
+    (:func:`max_chunk_rows`) run in chunks (:func:`_in_row_chunks`)."""
+    n = _chunks_of(xw, 2, h0.shape[-1], 2)
+    if n > 1:
+        return _in_row_chunks(bilstm_scan_fn, n, 2, xw, mask, h0, c0, wh)
     if not (torch.is_grad_enabled()
             and any(x.requires_grad for x in (xw, h0, c0, wh[0], wh[1]))):
         return bilstm_scan(xw, mask, h0, c0, wh)

@@ -20,7 +20,9 @@ a path ending in ``bias`` or ``/b``.  A parameter without a gradient in
 a step is stepped with a zero one (``train/optim.py:fill_missing_grads_``).
 
 Snapshots are ``snap/<name>/pretrain/checkpoint-N``: a torch file of
-``{"step", "state_dict"}``.  Dropout draws its masks from a
+``{"step", "state_dict"}``.  :meth:`Pretrainer.load` also reads the JAX
+package's ``checkpoint-N``, a pickle of ``{"step", "params": flax
+bytes}`` (``dasa_tpu/pretrain/trainer.py:213-227``).  Dropout draws its masks from a
 ``torch.Generator`` seeded from ``cfg.seed``.
 """
 
@@ -44,9 +46,13 @@ from dasa_tpu_torch.pretrain.data import (
 )
 from dasa_tpu_torch.pretrain.model import DicAddActionPreTrain
 from dasa_tpu_torch.train.optim import fill_missing_grads_
+from dasa_tpu_torch.utils import flax_msgpack
 from dasa_tpu_torch.utils.angles import all_point_angle_feature
 from dasa_tpu_torch.utils.device import resolve_device
-from dasa_tpu_torch.utils.jax_params import jax_path_of
+from dasa_tpu_torch.utils.jax_params import (
+    jax_path_of,
+    pretrain_state_dict_from_jax,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 CLIP_NORM = 1.0
@@ -247,8 +253,20 @@ class Pretrainer:
                                    self.model.state_dict().items()}}, path)
 
     def load(self, path: str) -> None:
-        blob = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(blob["state_dict"])
+        """Restore a :meth:`save` snapshot, or the JAX Pretrainer's (its
+        params carried over by ``pretrain_state_dict_from_jax``).  Neither
+        file holds optimizer state."""
+        if flax_msgpack.file_format(path) == "torch":
+            blob = torch.load(path, map_location=self.device,
+                              weights_only=True)
+            state = blob["state_dict"]
+        else:
+            blob = flax_msgpack.load_plain_pickle(path)
+            tree = flax_msgpack.msgpack_restore(blob["params"])
+            state = {k: torch.as_tensor(v) for k, v in
+                     pretrain_state_dict_from_jax(
+                         tree.get("params", tree)).items()}
+        self.model.load_state_dict(state)
         self.step_count = int(blob["step"])
 
     def export_bert_params(self) -> Dict[str, torch.Tensor]:

@@ -7,6 +7,7 @@ so tests and ``chip_smoke.py`` write small worlds of their own in the same
 reads: one entry per viewpoint with ``image_id``, a flat row-major 4x4
 ``pose`` whose translation sits at indices 3, 7 and 11, ``included``,
 ``unobstructed`` (the adjacency row) and ``height``.
+:func:`write_ndh_task` writes CVDN-format NDH dialogs over such a world.
 """
 
 from __future__ import annotations
@@ -55,6 +56,60 @@ def write_synthetic_connectivity(out_dir: str, scans: Sequence[str],
         with open(os.path.join(out_dir, f"{scan}_connectivity.json"),
                   "w") as f:
             json.dump(entries, f)
+
+
+# the words of the synthetic dialogs
+_DIALOG_WORDS = ("go", "turn", "left", "right", "past", "the", "door", "stairs",
+                 "kitchen", "hall", "table", "couch", "where", "is", "it",
+                 "near", "bedroom", "then", "stop", "window", "up", "down",
+                 "should", "i", "yes", "no", "keep", "walking", "straight")
+
+
+def write_ndh_task(data_dir: str, train_scans: Sequence[str],
+                   unseen_scans: Sequence[str], connectivity_dir: str,
+                   n_train: int = 8, n_val: int = 4, dialog_words: int = 120,
+                   seed: int = 0) -> None:
+    """Write ``NDH_{train,val_seen,val_unseen}.json`` in the CVDN format
+    that ``data/ndh.py:convert_ndh_items`` reads: ``inst_idx``, ``scan``,
+    ``target``, ``start_pano`` {pano, heading}, ``dialog_history`` (turns
+    of navigator questions and oracle answers), ``planner_path``,
+    ``player_path`` and ``nav_steps``.  The paths are the synthetic
+    world's 3-6 hop shortest paths; every other item's player stopped a
+    node short (so ``trusted_path`` takes the player's path there).  The
+    dialog turns hold about ``dialog_words`` words in all, which with the
+    ``all`` history's tags gives an instruction of about that many
+    tokens."""
+    from dasa_tpu_torch.data.datasets import generate_synthetic_dataset
+
+    rng = np.random.default_rng(seed)
+    splits = {"train": (train_scans, n_train, 0),
+              "val_seen": (train_scans, n_val, 100000),
+              "val_unseen": (unseen_scans, n_val, 200000)}
+    os.makedirs(data_dir, exist_ok=True)
+    for i, (split, (scans, n, base)) in enumerate(splits.items()):
+        items = generate_synthetic_dataset(scans, n, connectivity_dir,
+                                           seed=seed + i, path_id_base=base)
+        out = []
+        for j, item in enumerate(items):
+            path = item["path"]
+            player = path[:-1] if j % 2 and len(path) > 2 else list(path)
+            turns, words = [], 0
+            while words < dialog_words:
+                n_words = int(rng.integers(4, 16))
+                role = "navigator" if len(turns) % 2 == 0 else "oracle"
+                turns.append({"nav_idx": len(turns) // 2, "role": role,
+                              "message": " ".join(
+                                  rng.choice(_DIALOG_WORDS, n_words))})
+                words += n_words + 1
+            out.append({
+                "inst_idx": item["path_id"], "scan": item["scan"],
+                "target": str(rng.choice(_DIALOG_WORDS)),
+                "start_pano": {"pano": path[0],
+                               "heading": item["heading"]},
+                "dialog_history": turns, "planner_path": list(path),
+                "player_path": player, "nav_steps": list(player)})
+        with open(os.path.join(data_dir, f"NDH_{split}.json"), "w") as f:
+            json.dump(out, f)
 
 
 @contextlib.contextmanager

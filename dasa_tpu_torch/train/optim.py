@@ -15,12 +15,20 @@ gradient, as the JAX package's ``optax.multi_transform`` feeds every leaf
 of a stepped component (``dasa_tpu/train/optim.py:84``): RMSprop's and
 Adam's moments decay, Adam's step count stays the component's, and
 ``weight_decay`` moves the parameter.
+
+:func:`restore_optax_state` carries the JAX package's optax state into
+these optimizers (``--load_optim`` on a JAX checkpoint):
+``scale_by_torch_rms``'s ``nu`` is RMSprop's ``square_avg``,
+``scale_by_adam``'s ``mu`` / ``nu`` / ``count`` are Adam's ``exp_avg`` /
+``exp_avg_sq`` / ``step``, and the schedule's ``count`` is
+:attr:`ComponentOptimizer.iteration`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -85,12 +93,76 @@ def clip_grad_global_norm_(params: List[nn.Parameter],
         g.mul_(scale)
 
 
+def optax_moments(state) -> dict:
+    """The moments in one optax state (as flax's ``to_state_dict`` or
+    ``utils/flax_msgpack.py`` gives it: nested dicts, a chain's members
+    under "0", "1", ...): ``mu`` and ``nu`` trees (None where absent),
+    Adam's ``count`` and the schedule's ``schedule_count`` (None where
+    absent).  ``scale_by_adam`` holds {count, mu, nu},
+    ``scale_by_torch_rms`` {nu}, ``scale_by_schedule`` {count}."""
+    found = {"mu": None, "nu": None, "count": None, "schedule_count": None}
+
+    def walk(node):
+        if not isinstance(node, Mapping):
+            return
+        if "nu" in node:
+            found["nu"] = node["nu"]
+            if "mu" in node:
+                found["mu"] = node["mu"]
+                found["count"] = int(np.asarray(node["count"]))
+            return
+        if set(node) == {"count"}:
+            found["schedule_count"] = int(np.asarray(node["count"]))
+            return
+        for val in node.values():
+            walk(val)
+
+    walk(state)
+    return found
+
+
+def restore_optax_state(opt: torch.optim.Optimizer,
+                        names: Mapping[nn.Parameter, str], state,
+                        to_state_dict: Callable) -> Optional[int]:
+    """Set ``opt``'s per-parameter state from one optax state
+    (:func:`optax_moments`); ``to_state_dict`` maps a JAX param tree onto
+    the port's parameter names, and ``names`` names ``opt``'s parameters.
+    Raises ``KeyError`` when a parameter has no moment.  Returns the
+    schedule's count (None when the chain has no schedule)."""
+    found = optax_moments(state)
+    mu = None if found["mu"] is None else to_state_dict(found["mu"])
+    nu = None if found["nu"] is None else to_state_dict(found["nu"])
+    step = found["count"] if found["count"] is not None \
+        else found["schedule_count"] or 0
+    adam = isinstance(opt, (torch.optim.Adam, torch.optim.AdamW))
+    rms = isinstance(opt, torch.optim.RMSprop)
+    if (adam and mu is None) or (rms and nu is None):
+        raise KeyError(f"no {'Adam' if adam else 'RMSprop'} moments in the "
+                       "optax state")
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = {"step": torch.tensor(float(step))}
+
+            def moment(tree):
+                return torch.as_tensor(tree[names[p]]).to(p.device, p.dtype)
+
+            if adam:
+                st.update(exp_avg=moment(mu), exp_avg_sq=moment(nu))
+            elif rms:
+                st["square_avg"] = moment(nu)
+            else:  # sgd: no state
+                continue
+            opt.state[p] = st
+    return found["schedule_count"]
+
+
 class ComponentOptimizer:
     """The per-component optimizers of a policy, stepped together."""
 
     def __init__(self, cfg: Config, policy: nn.Module):
         self.cfg = cfg
         self.schedule = lr_lambda(cfg) if cfg.use_lr_scheduler else None
+        self.names = {p: name for name, p in policy.named_parameters()}
         self.params: Dict[str, List[nn.Parameter]] = {}
         for name, module in policy.named_children():
             key = name if name in COMPONENTS else "other"
@@ -111,3 +183,16 @@ class ComponentOptimizer:
                     group["lr"] = self.cfg.lr * self.schedule(it)
             opt.step()
         self.iteration += 1
+
+    def restore_optax(self, opt_state, to_state_dict: Callable) -> None:
+        """Restore the JAX agent's ``build_optimizer`` state (an
+        ``optax.multi_transform`` keyed by component, as a state dict):
+        each component's moments into the optimizer of the same name
+        (:func:`restore_optax_state`), the schedule's count into
+        :attr:`iteration`."""
+        inner = opt_state["inner_states"]
+        for name, opt in self.optimizers.items():
+            count = restore_optax_state(opt, self.names, inner[name],
+                                        to_state_dict)
+            if count is not None:
+                self.iteration = count

@@ -4,8 +4,9 @@
 
 Counterpart of ``World``, ``make_agent``, ``run_validation``, ``train``,
 ``beam_valid``, ``train_speaker``, ``valid_speaker`` and ``valid`` in
-``dasa_tpu/train/trainer.py`` (reference r2r_src/train.py:110-517).  NDH
-worlds and the data-parallel mesh come with later slices (ROADMAP.md).
+``dasa_tpu/train/trainer.py`` (reference r2r_src/train.py:110-517),
+with the NDH worlds (``World(ndh=True)``, reference ndhtrain.py).  The
+data-parallel mesh comes with a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from dasa_tpu_torch.agents.speaker import SpeakerAgent
 from dasa_tpu_torch.config import Config
 from dasa_tpu_torch.data.datasets import expand_instructions, load_datasets
 from dasa_tpu_torch.data.features import load_feature_db
+from dasa_tpu_torch.data.ndh import convert_ndh_items
 from dasa_tpu_torch.env import R2REnv
 from dasa_tpu_torch.train.evaluation import Evaluation
 from dasa_tpu_torch.train.metrics import MetricsWriter
@@ -36,18 +38,24 @@ from dasa_tpu_torch.utils.misc import GracefulKiller, Timer, set_seed
 
 
 class World:
-    """Shared data context: tokenizer, feature stores, envs, evaluators."""
+    """Shared data context: tokenizer, feature stores, envs, evaluators.
+
+    ``ndh=True`` reads CVDN-format ``NDH_{split}.json`` dialogs and converts
+    them to the R2R schema (``data/ndh.py``, with the config's
+    ``path_type`` and ``history``); the listener stack then runs
+    unchanged (reference ndhtrain.py)."""
 
     def __init__(self, cfg: Config, splits=("train",),
-                 val_splits=("val_seen", "val_unseen")):
+                 val_splits=("val_seen", "val_unseen"), ndh: bool = False):
         self.cfg = cfg
+        self.ndh = ndh
         set_seed(cfg.seed)
         vocab_path = cfg.vocab_path or os.path.join(
             cfg.data_dir, "train_vocab.txt")
         if os.path.exists(vocab_path):
             vocab = read_vocab(vocab_path)
         else:
-            train_raw = load_datasets(["train"], cfg.data_dir)
+            train_raw = self._load("train")
             vocab = build_vocab(train_raw, min_count=5)
             if len(vocab) < 20:  # tiny synthetic data: keep every word
                 vocab = build_vocab(train_raw, min_count=1)
@@ -56,8 +64,8 @@ class World:
 
         scans = sorted({d["scan"] for split in set(
             list(splits) + list(val_splits) + (["aug"] if cfg.aug else []))
-            for d in load_datasets([cfg.aug if split == "aug" else split],
-                                   cfg.data_dir)})
+            for d in (load_datasets([cfg.aug], cfg.data_dir)
+                      if split == "aug" else self._load(split))})
         self.feature_db = load_feature_db(
             cfg.img_features_path, scans, cfg.connectivity_dir,
             dim=cfg.feature_size)
@@ -70,7 +78,7 @@ class World:
         self.envs: Dict[str, R2REnv] = {}
         self.evaluators: Dict[str, Evaluation] = {}
         for split in list(splits) + list(val_splits):
-            raw = load_datasets([split], cfg.data_dir)
+            raw = self._load(split)
             items = expand_instructions(raw, self.tok, cfg.max_input)
             self.envs[split] = self._make_env(items, split)
             self.evaluators[split] = Evaluation(
@@ -79,6 +87,15 @@ class World:
             raw = load_datasets([cfg.aug], cfg.data_dir)
             items = expand_instructions(raw, self.tok, cfg.max_input)
             self.envs["aug"] = self._make_env(items, "aug")
+
+    def _load(self, split: str):
+        """The split's R2R-schema items: ``{split}`` of the R2R data, or
+        the converted ``NDH_{split}.json`` dialogs of an NDH world."""
+        if not self.ndh:
+            return load_datasets([split], self.cfg.data_dir)
+        with open(os.path.join(self.cfg.data_dir, f"NDH_{split}.json")) as f:
+            raw = json.load(f)
+        return convert_ndh_items(raw, self.cfg.path_type, self.cfg.history)
 
     def _make_env(self, items, name):
         cfg = self.cfg

@@ -11,8 +11,9 @@ and BertImg (equal trajectories), Dijkstra search of EncoderLSTM and
 mcatt (equal paths and scores), HugAdd and BertAdd pretraining files
 grafted as JAX's ``load_pretrained_encoder`` grafts them, the JAX
 listener files of EncoderLSTM and BertAdd read by ``Seq2SeqAgent.load``,
-the CLI's ``--train listener`` at the default encoder and its refusal of
-the NDH modes, and the LSTM entry points' row chunks above 64 rows.
+the CLI's ``--train listener`` at the default encoder and its NDH modes
+over dialogs the test writes, and the LSTM entry points' row chunks above
+64 rows.
 
 Tolerance: rtol 1e-5, atol 1e-6 for the policy outputs, except where
 stated beside a case; grafts and loads exactly.
@@ -101,13 +102,17 @@ def one_torch_thread():
         yield
 
 
-@pytest.fixture(autouse=True)
-def narrow_bert(monkeypatch):
-    for mod in (jax_policy, port_policy):
-        base = mod.bert_config_from
-        monkeypatch.setattr(mod, "bert_config_from",
-                            lambda cfg, base=base: dataclasses.replace(
-                                base(cfg), **NARROW))
+@pytest.fixture(autouse=True, scope="module")
+def narrow_bert():
+    """The narrow BERT on both sides for the whole module (flax re-reads
+    it at every apply, and the shared pairs are built once)."""
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jax_policy, port_policy):
+            base = mod.bert_config_from
+            mp.setattr(mod, "bert_config_from",
+                       lambda cfg, base=base: dataclasses.replace(
+                           base(cfg), **NARROW))
+        yield
 
 
 def rand(rng, *shape, scale=1.0):
@@ -332,35 +337,59 @@ def world(tmp_path_factory):
     return conn, data, Tokenizer(vocab, encoding_length=L)
 
 
+def port_agent(world, split="train", **kw):
+    """The port's agent over one split."""
+    conn, data, tok = world
+    items = expand_instructions(load_datasets([split], data), tok,
+                                max_input=L)
+    feat = FeatureDB.synthetic(SCANS, conn, dim=DIM)
+    depth = FeatureDB.synthetic(SCANS, conn, dim=DIM, salt=7)
+    env = R2REnv(feat, items, batch_size=2, connectivity_dir=conn,
+                 max_candidates=16, max_input=L, depth_db=depth)
+    return Seq2SeqAgent(Config(**{**AGENT_CFG, **kw}, connectivity_dir=conn,
+                               data_dir=data),
+                        env, feat, depth_db=depth, vocab_size=len(tok),
+                        device="cpu")
+
+
 def make_pair(world, split="train", **kw):
     """JAX and port agents over one split, the same weights."""
     conn, data, tok = world
     items = expand_instructions(load_datasets([split], data), tok,
                                 max_input=L)
-    kw = {**AGENT_CFG, **kw}
     jfeat = JaxFeatureDB.synthetic(SCANS, conn, dim=DIM)
     jdepth = JaxFeatureDB.synthetic(SCANS, conn, dim=DIM, salt=7)
     jenv = JaxEnv(jfeat, items, batch_size=2, connectivity_dir=conn,
                   max_candidates=16, max_input=L, depth_db=jdepth,
                   backend="python")
-    jagent = JaxAgent(JaxConfig(**kw, connectivity_dir=conn), jenv, jfeat,
-                      depth_db=jdepth, vocab_size=len(tok), rng_seed=11)
-    feat = FeatureDB.synthetic(SCANS, conn, dim=DIM)
-    depth = FeatureDB.synthetic(SCANS, conn, dim=DIM, salt=7)
-    env = R2REnv(feat, items, batch_size=2, connectivity_dir=conn,
-                 max_candidates=16, max_input=L, depth_db=depth)
-    agent = Seq2SeqAgent(Config(**kw, connectivity_dir=conn, data_dir=data),
-                         env, feat, depth_db=depth, vocab_size=len(tok),
-                         device="cpu")
+    jagent = JaxAgent(JaxConfig(**{**AGENT_CFG, **kw}, connectivity_dir=conn),
+                      jenv, jfeat, depth_db=jdepth, vocab_size=len(tok),
+                      rng_seed=11)
+    agent = port_agent(world, split, **kw)
     agent.load_jax_params(jax.tree_util.tree_map(np.asarray, jagent.params))
     return jagent, agent
 
 
+@pytest.fixture(scope="module")
+def pairs(world, narrow_bert):
+    """One JAX / port pair per (split, configuration), shared by the tests
+    that drive it (each resets what it reads: the env's epoch, the
+    results); both agents of a pair advance in step."""
+    cache = {}
+
+    def get(split, name):
+        if (split, name) not in cache:
+            cache[split, name] = make_pair(world, split, **CONFIGS[name])
+        return cache[split, name]
+
+    return get
+
+
 @pytest.mark.parametrize("name", ["EncoderLSTM", "BertImg"])
-def test_argmax_test_matches_jax(world, name):
+def test_argmax_test_matches_jax(pairs, name):
     """Argmax evaluation of a whole split on the device paths: the same
     trajectories."""
-    jagent, agent = make_pair(world, "val_unseen", **CONFIGS[name])
+    jagent, agent = pairs("val_unseen", name)
     want = {r["instr_id"]: r["trajectory"]
             for r in jagent.test(feedback="argmax")}
     got = {r["instr_id"]: r["trajectory"]
@@ -369,12 +398,12 @@ def test_argmax_test_matches_jax(world, name):
 
 
 @pytest.mark.parametrize("name", ["EncoderLSTM", "mcatt"])
-def test_dijkstra_search_matches_jax(world, name):
+def test_dijkstra_search_matches_jax(pairs, name):
     """Dijkstra search over the plain ({ctx, h0, c0}) and the mcatt
     per-episode caches, sliced per frontier row: the paths, actions and
     listener scores of the JAX search (the decoder state at rnn_dim and
     at the MCAN width)."""
-    jagent, agent = make_pair(world, "val_unseen", **CONFIGS[name])
+    jagent, agent = pairs("val_unseen", name)
     jagent.env.reset_epoch()
     agent.env.reset_epoch()
     want = jax_search.dijkstra_search(jagent, n_candidates=2,
@@ -411,12 +440,12 @@ def bert_add_checkpoint(policy, family, rng):
 
 
 @pytest.mark.parametrize("family", ["hugadd", "bertadd_encoder"])
-def test_bert_add_families_graft_as_jax(world, tmp_path, family):
+def test_bert_add_families_graft_as_jax(pairs, tmp_path, family):
     """--pretrain_model_name of a HugAdd or a BertAdd pretraining file on a
     BertAdd listener: the port's load_pretrained_encoder gives exactly the
     JAX graft's weights (the bias_hh folded into bias_ih as JAX sums
     them), and changes the encoder."""
-    jagent, agent = make_pair(world, **CONFIGS["BertAdd"])
+    jagent, agent = pairs("train", "BertAdd")
     blob = bert_add_checkpoint(agent.policy, family,
                                np.random.default_rng(len(family)))
     path = tmp_path / family / "pytorch_model.bin"
@@ -439,13 +468,13 @@ def test_bert_add_families_graft_as_jax(world, tmp_path, family):
 
 
 @pytest.mark.parametrize("name", ["EncoderLSTM", "BertAdd"])
-def test_jax_listener_file_loads(world, tmp_path, name):
+def test_jax_listener_file_loads(world, pairs, tmp_path, name):
     """The JAX agent's listener file (flax msgpack) read by the port's
     load: every tensor equal to load_jax_params of the same params."""
-    jagent, agent = make_pair(world, **CONFIGS[name])
+    jagent, agent = pairs("train", name)
     path = str(tmp_path / "listener")
     jagent.save(7, path)
-    _jother, other = make_pair(world, **CONFIGS[name])
+    other = port_agent(world, **CONFIGS[name])
     torch.manual_seed(5)
     for p in other.policy.parameters():
         p.data.normal_()
@@ -478,10 +507,34 @@ def test_cli_trains_the_default_listener(world, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("mode", ["ndh", "ndhlistener", "validndh"])
-def test_ndh_still_raises(mode):
-    """NDH (btokenizer, semantic, NDH worlds) is the next slice: the CLI
-    refuses its modes, naming ROADMAP.md."""
+def test_ndh_modes_run(world, tmp_path, capsys, mode):
+    """The NDH modes through the CLI on the CPU, at tiny widths, over
+    CVDN dialogs written here (``testing.write_ndh_task``) on the
+    synthetic world: ``ndh`` and ``ndhlistener`` train two iterations and
+    validate, ``validndh`` validates; ``--history all`` sets max_input to
+    300 and ``--path_type trusted_path`` max_action to 40."""
     from dasa_tpu_torch.cli import main
+    from dasa_tpu_torch.testing import write_ndh_task
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["--device", "cpu", "--train", mode])
+    conn, _data, _tok = world
+    data = str(tmp_path / "ndh")
+    write_ndh_task(data, SCANS[:1], SCANS[1:], conn, n_train=4, n_val=2,
+                   dialog_words=60)
+    main(["--device", "cpu", "--connectivity_dir", conn, "--data_dir",
+          data, "--snap_dir", str(tmp_path / "snap"), "--log_dir",
+          str(tmp_path / "log"), "--name", "ndh", "--iters", "2",
+          "--log_every", "2", "--val_every", "2", "--batchSize", "2",
+          "--train", mode, "--history", "all", "--path_type",
+          "trusted_path", "--rnnDim", "32", "--wemb", "16", "--aemb", "8",
+          "--critic_dim", "32", "--angle_feat_size", "8", "--feature_size",
+          str(DIM), "--max_candidates", "16", "--subout", "max",
+          "--bidir", "0"])
+    out = capsys.readouterr().out
+    assert '"max_input": 300' in out and '"max_action": 40' in out
+    assert "val_unseen" in out
+    if mode == "validndh":
+        assert "Env name: val_seen" in out
+    else:
+        assert "PROGRESS: 2/2" in out
+        assert os.path.exists(tmp_path / "snap" / "ndh" / "state_dict"
+                              / "LAST_iter2")

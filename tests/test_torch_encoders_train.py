@@ -84,18 +84,22 @@ def one_torch_thread():
         yield
 
 
-@pytest.fixture(autouse=True)
-def narrow_and_dropout_free(monkeypatch):
-    """The 64-wide BERT and dropout-free MCAN blocks on both sides."""
+@pytest.fixture(autouse=True, scope="module")
+def narrow_and_dropout_free():
+    """The 64-wide BERT and dropout-free MCAN blocks on both sides, for
+    the whole module (flax re-reads them at every apply, and the shared
+    pairs are built once)."""
     import dataclasses
 
-    for mod in (jax_policy, port_policy):
-        base = mod.bert_config_from
-        monkeypatch.setattr(mod, "bert_config_from",
-                            lambda cfg, base=base: dataclasses.replace(
-                                base(cfg), **NARROW))
-    monkeypatch.setattr(jax_mcan, "McattEncoder", JaxMcattNoDropout)
-    monkeypatch.setattr(port_mcan, "McattEncoder", PortMcattNoDropout)
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jax_policy, port_policy):
+            base = mod.bert_config_from
+            mp.setattr(mod, "bert_config_from",
+                       lambda cfg, base=base: dataclasses.replace(
+                           base(cfg), **NARROW))
+        mp.setattr(jax_mcan, "McattEncoder", JaxMcattNoDropout)
+        mp.setattr(port_mcan, "McattEncoder", PortMcattNoDropout)
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -133,6 +137,21 @@ def make_pair(world, **kw):
     return jagent, agent
 
 
+@pytest.fixture(scope="module")
+def pairs(world, narrow_and_dropout_free):
+    """One JAX / port pair per encoder, shared by the device passes and
+    the host replay (each test zeroes the port's gradients; both agents
+    of a pair advance through the same minibatches in step)."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = make_pair(world, **ENCODERS[name])
+        return cache[name]
+
+    return get
+
+
 def noise_vector(seed=3):
     keep = np.random.default_rng(seed).random(DIM) > 0.3
     return (keep / 0.7).astype(np.float32)
@@ -161,11 +180,11 @@ def assert_logs_match(agent, logs):
 
 @pytest.mark.parametrize("name", list(ENCODERS))
 @pytest.mark.parametrize("feedback", ["teacher", "argmax"])
-def test_device_pass_matches_jax(world, name, feedback):
+def test_device_pass_matches_jax(pairs, name, feedback):
     """The teacher pass (train_ml 1: the walk and its batched-percept
     replay, the per-episode cache repeated over the steps) and the fused
     argmax pass (train_ml 0.2 and the A2C terms, step by step)."""
-    jagent, agent = make_pair(world, **ENCODERS[name])
+    jagent, agent = pairs(name)
     noise = noise_vector()
     train_ml = 1.0 if feedback == "teacher" else 0.2
     args = list(jagent._device_rollout_args(feedback, train_ml, False))
@@ -202,13 +221,14 @@ def test_stream_window_matches_jax(world, name):
 
 
 @pytest.mark.parametrize("name", list(ENCODERS))
-def test_host_replay_matches_jax(world, name):
+def test_host_replay_matches_jax(pairs, name):
     """A sampled host episode of the JAX agent (its sampler draws
     differently), replayed by the port's ``_run_replays``: the A2C loss,
     the logs and the gradients."""
-    jagent, agent = make_pair(world, **ENCODERS[name])
+    jagent, agent = pairs(name)
     noise = noise_vector()
     jagent._noise_fn = lambda: (lambda _rng: jnp.asarray(noise))
+    jagent.zero_grad()
     jagent.rollout(train_ml=0.2, train_rl=True, feedback="sample",
                    defer_grad=True)
     (instr, valid, seq_len, stacked, final, rewards, masks, ended, pm,

@@ -40,6 +40,8 @@ from dasa_tpu_torch.ops.lstm import (
     _fwd_smem,
     bwd_plan,
     fwd_plan,
+    max_chunk_rows,
+    row_chunks,
 )
 from dasa_tpu_torch.ops.shift_attention import (
     SHIFT_MAX_B,
@@ -313,3 +315,24 @@ def test_shift_plan_takes_the_narrowest_slice_within_the_sms(c, n_sm, sw):
 def test_shift_plan_refuses_shapes_naming_the_constraint(args, match):
     with pytest.raises(ValueError, match=match):
         shift_plan(*args, H100_SMS)
+
+
+def test_ndh_rows_chunk_by_the_plans():
+    """At NDH's 300 tokens the (T, B) mask leaves room for 48 rows of the
+    headline H 1024 BiLSTM (both directions, or one): 64 rows run as two
+    chunks of 32, each of which both plans take; 49 rows do not fit one
+    launch.  At T 80 / 116 and at the plain encoders' widths 64 rows stay
+    one chunk."""
+    for dirs in (1, 2):
+        assert max_chunk_rows(300, 1024, dirs, H100_SMS) == 48
+        assert row_chunks(64, 300, 1024, dirs, H100_SMS) == 2
+        assert row_chunks(20, 300, 1024, dirs, H100_SMS) == 1
+        assert row_chunks(130, 300, 1024, dirs, H100_SMS) == 3
+        for rows in (32, 48):
+            fwd_plan(300, rows, 1024, H100_SMS, dirs)
+            bwd_plan(300, rows, 1024, H100_SMS)
+        with pytest.raises(ValueError, match="shared memory"):
+            fwd_plan(300, 49, 1024, H100_SMS, dirs)
+    for t_len, hd in ((80, 1024), (116, 1024), (300, 256), (300, 384),
+                      (300, 512)):
+        assert row_chunks(64, t_len, hd, 2, H100_SMS) == 1

@@ -51,6 +51,7 @@ from dasa_tpu_torch.data.features import FeatureDB
 from dasa_tpu_torch.env import R2REnv
 from dasa_tpu_torch.pretrain.trainer import Pretrainer
 from dasa_tpu_torch.testing import torch_threads, write_synthetic_connectivity
+from dasa_tpu_torch.train.optim import optax_moments
 from dasa_tpu_torch.utils import Tokenizer, build_vocab
 from dasa_tpu_torch.utils.jax_params import (
     policy_state_dict_from_jax,
@@ -328,10 +329,22 @@ def test_jax_listener_files_load(world, pair, tmp_path, capsys, fmt):
                              jagent.opt_state)}, f)
     other = make_port_agent(world, rng_seed=3, load_optim=True)
     assert other.load(path) == 5
-    assert "optimizer state not restored" in capsys.readouterr().out
+    assert "optimizer state not restored" not in capsys.readouterr().out
     got = other.policy.state_dict()
     for k, v in agent.policy.state_dict().items():
         assert torch.equal(got[k], v), k
+    # the optax state restored: every trained parameter's RMSprop
+    # square_avg is the JAX scale_by_torch_rms nu of its component
+    inner = serialization.to_state_dict(jagent.opt_state)["inner_states"]
+    names = other.optimizer.names
+    for comp, opt in other.optimizer.optimizers.items():
+        nu = policy_state_dict_from_jax(jax.tree_util.tree_map(
+            np.asarray, optax_moments(inner[comp])["nu"]))
+        for p in other.optimizer.params[comp]:
+            np.testing.assert_array_equal(
+                opt.state[p]["square_avg"].numpy(), nu[names[p]],
+                err_msg=names[p])
+    assert other.optimizer.iteration == 0
 
 
 def test_jax_speaker_file_loads(world, tmp_path):

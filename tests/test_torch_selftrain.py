@@ -16,18 +16,22 @@ Then the README's ``--train auglistener --selfTrain`` command runs
 through the CLI.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import dasa_tpu.models.policy as jax_policy
 from dasa_tpu.agents import Seq2SeqAgent as JaxAgent
 from dasa_tpu.agents.speaker import SpeakerAgent as JaxSpeaker
 from dasa_tpu.config import Config as JaxConfig
 from dasa_tpu.data.features import FeatureDB as JaxFeatureDB
 from dasa_tpu.env import R2REnv as JaxEnv
 from dasa_tpu.utils import Tokenizer as JaxTokenizer
+import dasa_tpu_torch.models.policy as port_policy
 from dasa_tpu_torch.agents import Seq2SeqAgent
 from dasa_tpu_torch.agents.speaker import SpeakerAgent
 from dasa_tpu_torch.config import Config
@@ -64,6 +68,20 @@ GRAD_TOL = dict(rtol=2e-4, atol=1e-6)
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     with torch_threads(1):
+        yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def narrow_bert():
+    """The frozen BERT 64 wide on both sides (its width is only a shape
+    here; flax re-reads it at every apply)."""
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jax_policy, port_policy):
+            base = mod.bert_config_from
+            mp.setattr(mod, "bert_config_from",
+                       lambda cfg, base=base: dataclasses.replace(
+                           base(cfg), hidden_size=64, num_attention_heads=2,
+                           intermediate_size=128))
         yield
 
 

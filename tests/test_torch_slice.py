@@ -185,6 +185,8 @@ def test_import_does_not_load_jax_or_the_jax_package():
         "import dasa_tpu_torch.utils.flax_msgpack\n"
         "import dasa_tpu_torch.utils.pretrain_load\n"
         "import dasa_tpu_torch.utils.torch_import\n"
+        "import dasa_tpu_torch.data.ndh, dasa_tpu_torch.data.semantic\n"
+        "from dasa_tpu_torch.data.btokenizer import BTokenizer\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'dasa_tpu')]\n"
         "assert not bad, bad\n")

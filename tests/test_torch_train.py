@@ -15,6 +15,8 @@ determinism.
 
 import os
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,11 +24,13 @@ import optax
 import pytest
 import torch
 
+import dasa_tpu.models.policy as jax_policy
 from dasa_tpu.agents import Seq2SeqAgent as JaxAgent
 from dasa_tpu.config import Config as JaxConfig
 from dasa_tpu.data.features import FeatureDB as JaxFeatureDB
 from dasa_tpu.env import R2REnv as JaxEnv
 from dasa_tpu.train.optim import build_optimizer
+import dasa_tpu_torch.models.policy as port_policy
 from dasa_tpu_torch.agents import Seq2SeqAgent
 from dasa_tpu_torch.config import Config
 from dasa_tpu_torch.data.datasets import (
@@ -62,6 +66,20 @@ GRAD_TOL = dict(rtol=2e-4, atol=1e-6)
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     with torch_threads(1):
+        yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def narrow_bert():
+    """The frozen BERT 64 wide on both sides (its width is only a shape
+    here; flax re-reads it at every apply)."""
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jax_policy, port_policy):
+            base = mod.bert_config_from
+            mp.setattr(mod, "bert_config_from",
+                       lambda cfg, base=base: dataclasses.replace(
+                           base(cfg), hidden_size=64, num_attention_heads=2,
+                           intermediate_size=128))
         yield
 
 
@@ -343,11 +361,13 @@ def test_same_seed_same_gradients(world):
     dict(device_rollout="never"), dict(pretrain_model_name="bert.pt"),
     dict(fuse_passes="auto"), dict(remat="percept")])
 def test_unported_training_paths_raise(world, option, tmp_path):
-    """The training options the port leaves out raise, naming ROADMAP.md;
-    ``device_rollout="never"`` runs the host act/replay rollout instead,
-    and ``pretrain_model_name`` grafts a Pretrainer snapshot (written
-    here, under that name) into the encoder first: a teacher-ML and a
-    sampled pass with finite losses and gradients."""
+    """The training options once left out of the port now run: a
+    teacher-ML and a sampled pass with finite losses and gradients.
+    ``device_rollout="never"`` runs the host act/replay rollout,
+    ``pretrain_model_name`` grafts a Pretrainer snapshot (written here,
+    under that name) into the encoder first, ``fuse_passes="auto"`` runs
+    the same split pair and ``remat="percept"`` recomputes the percepts
+    in the backward; each then takes an optimizer step."""
     if "pretrain_model_name" in option:
         plain = port_agent(world)
         snap = tmp_path / option["pretrain_model_name"]
@@ -360,17 +380,15 @@ def test_unported_training_paths_raise(world, option, tmp_path):
         assert torch.equal(grafted.pooler.dense.weight,
                            plain.policy.encoder.bert.pooler.dense.weight
                            + 0.5)
-    if "pretrain_model_name" in option or \
-            option.get("device_rollout") == "never":
-        agent = port_agent(world, **option)
-        agent.zero_grad()
-        agent.accumulate_gradient("sample")
-        assert len(agent.losses) == 2
-        assert np.isfinite([float(x) for x in agent.losses]).all()
-        assert any(p.grad is not None for p in agent.policy.parameters())
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_agent(world, **option).accumulate_gradient("sample")
+    agent = port_agent(world, **option)
+    agent.zero_grad()
+    agent.accumulate_gradient("sample")
+    assert len(agent.losses) == 2
+    assert np.isfinite([float(x) for x in agent.losses]).all()
+    grads = [p.grad for p in agent.policy.parameters() if p.grad is not None]
+    assert grads and all(torch.isfinite(g).all() for g in grads)
+    agent.optim_step()
+    assert agent.iter_count == 1
 
 
 def test_cli_trains_and_validates_on_cpu(world, tmp_path, capsys):

@@ -12,6 +12,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --phases build,kernels,variants
     python3 chip_smoke.py --phases build,kernels,encoders
     python3 chip_smoke.py --phases build,kernels,ndh,knobs
+    python3 chip_smoke.py --phases build,main,dp,offline,native
 
 Phases:
   1. build — print the card's name and power limit, build the CUDA
@@ -54,12 +55,16 @@ Phases:
      ``[ndh,B20,T300]`` and ``[ndh,B64,T300]`` hold K1 and K2 at NDH's
      300-token dialogs (H 1024 both directions, ragged; B 64 in the row
      chunks the launch plans allow, ``ops/lstm.py:max_chunk_rows``), with
-     BiLstmScanFn's gradients.
+     BiLstmScanFn's gradients.  Rows named ``[dp,B10]`` hold K1 both
+     directions, K2, K3 (360 / 160 rows) and K4 at a rank's 10 rows of
+     phase 20's batch of 20 at D = 2, with the LstmScanFn, BiLstmScanFn,
+     AdainGateFn and ShiftAttendFn gradients (a rank's 20 stream slots
+     are the ``B = 20`` rows).
   3. main — the launch counters set to 0, ``valid()`` (argmax evaluation
      of val_seen and val_unseen) at the full headline DASA width over a
      synthetic world, the counters read back; SR/SPL/NE per split,
      episodes/s and agent-steps/s.  Fails if a kernel of the path never
-     launched.
+     launched, or if the world's envs do not run the native sim engine.
   4. compare — the same weights under ``use_pallas="always"`` and
      ``"never"``: first-step logits within the stated bf16 tolerance, and
      the share of episodes whose trajectories agree.
@@ -160,7 +165,7 @@ Phases:
      LSTM in one direction and ctx_v; (3) double + COCO; (4) advanced +
      mean; (5) kvmem + rgb mean + back; (6) new + depth stat; (7) mutan +
      rgb stat; (8) mt + rgb channel.  Each: the launch counters set to 0,
-     ``train()`` (2 episodic iterations) and ``valid()`` on val_unseen
+     ``train()`` (one episodic iteration) and ``valid()`` on val_unseen
      (every instr_id once), 1 and 8 also one stream window, 1 one
      host-rollout iteration, the counters read back.  Fails unless every
      loss is finite, each configured auxiliary loss (back, pm, kl) is
@@ -180,7 +185,7 @@ Phases:
      Gpt (width 256, 2 layers, 8 heads); (7) BertImg, (8) BertAdd and (9)
      BertMix on the headline listener (its BERT, decoder and AdaIN,
      batch 20); (10) mcatt (768 wide, 2 layers, 8 heads, batch 64).  Each:
-     the launch counters set to 0, ``train()`` (2 episodic iterations)
+     the launch counters set to 0, ``train()`` (one episodic iteration)
      and ``valid()`` on val_unseen (every instr_id once), 1 also a stream
      window, a host-rollout iteration and a Dijkstra ``beam_valid()`` of
      val_unseen, 8 a stream window, the counters read back.  Fails unless
@@ -215,12 +220,45 @@ Phases:
      relative L2 of never's, s a pass, peak memory); phase 17's BertImg
      and mcatt sampled passes under remat never and percept (the peak
      memory).  The counters are set to 0 before each run and summed.
+  20. dp — data parallel (``parallel/``): (a) a one-rank NCCL job
+     through the launcher's variables (``COORDINATOR_ADDRESS``,
+     ``NUM_PROCESSES=1``): the launch counters set to 0, ``train()`` with
+     ``data_parallel`` at headline width, 2 episodic iterations and then 2
+     stream windows of the same agent, each run ending in the rank-0
+     checkpoint, the counters read back; fails unless K1-K4 launched, the
+     losses are finite and the checkpoint exists.  (b) Two gloo ranks on
+     the one card (NCCL refuses two ranks on one device), processes of
+     this script (``--dp-worker``) at batch 20, 10 rows a rank, dropout
+     off: the teacher + fused argmax pair from the initial weights against
+     one rank at batch 20 (losses within 1e-4, gradient cosine >= 0.9999,
+     gradient norms within 1e-3, update cosine >= 0.995: ``DP_*``; the
+     argmax paths counted), a timed second pair, two stream windows in
+     which no episode is taken twice across the ranks, and 2 pretraining
+     steps against one rank (losses within 1e-4, each step's gradient
+     norm within 1e-3, update cosine >= 0.9999); fails unless K1-K4
+     launched on each rank.  Prints s an iteration, s a window and s a
+     pretraining step a rank, and each rank's peak memory.
+  21. offline — the depth pipeline: the 36 views (480 x 640) of 2
+     panoramas rendered by ``sim/render.py`` from seeded skybox faces;
+     ResNet-152 from ``--seed`` in bf16 on one viewpoint's views against
+     the same network in f32 (each view's 2048 features at cosine >=
+     0.99); every viewpoint of the val_unseen scan featurized
+     (``featurize_views``, batch 36; the other viewpoints turn the
+     rendered headings); ms a viewpoint, images/s, peak memory and the
+     bound (the convolutions' operations at 989 TF/s); the npy pair read
+     back as that split's ``depth_db`` and one ``valid()`` batch on it.
+  22. native — the native sim engine (``sim/native/dasasim.cpp``, built
+     by ``make`` when the world's envs were made): every candidate set of
+     the scan, the observations of a teacher walk and the host-rollout
+     evaluation of val_unseen (trajectories, SR, SPL) equal to the
+     python engine's, with the host seconds of each evaluation.
   profile (only when named in --phases) — one eval batch, one training
      iteration, one stream window, one selfTrain iteration, one search
      batch, one host-rollout iteration and one pretraining step at
      headline width under torch.profiler, each after a warm-up: device
      time by kernel, the device's busy share of the wall.
-Each phase ends with its wall time, in parentheses.
+Each phase ends with its wall time, in parentheses, and the run with its
+whole wall time.
 Then one ``{"kernels": [...]}`` JSON line (``launches``: the count during
 ``train()``; ``launches_eval``: during ``valid()``; ``launches_stream``:
 during ``train()`` under stream; ``launches_speaker``: during phase 9;
@@ -229,7 +267,8 @@ during ``train()`` under stream; ``launches_speaker``: during phase 9;
 ``launches_pretrain_chain``: during phase 15; ``launches_variants``:
 during phase 16's runs; ``launches_encoders``: during phase 17's runs;
 ``launches_ndh``: during phase 18's runs; ``launches_knobs``: during
-phase 19's runs;
+phase 19's runs; ``launches_dp``: during phase 20 (a)'s ``train()``;
+``launches_dp_ranks``: each rank's during phase 20 (b);
 ``ratio``: ``ms`` /
 ``library_ms``; ``device_ms`` / ``library_device_ms``: the back-to-back
 device times), and as the last line
@@ -354,7 +393,7 @@ VARIANTS = (
                               ab_type="a", a_type="sigmoid"), ("kl_loss",),
      K12 + ("adain_channel_gate",), ("stream",)),
 )
-VARIANT_ITERS = 2
+VARIANT_ITERS = 1
 
 # phase 17: the encoder zoo.  The plain encoders and mcatt at the Config
 # defaults, which are the R2R baseline listener's (batch 64, rnn_dim 512,
@@ -388,7 +427,7 @@ ENCODERS = (
     ("10 mcatt", dict(PLAIN, encoder_type="Dic", include_vision=True,
                       agent_type="mcatt"), K12, ()),
 )
-ENCODER_ITERS = 2
+ENCODER_ITERS = 1
 MULTI_S = 3  # MultiDicEncoder's sentences a row
 # phase 2's rows of the encoder zoo's LSTMs (tag, kernel_rows_lstm's
 # arguments): EncoderLSTM / B/CEncoder / Transformer / Gpt at rnn_dim 512
@@ -425,6 +464,28 @@ KNOB_ITERS = 2
 REMAT_MODES = ("never", "percept", "dots", "auto", "always")
 REMAT_RTOL = 1e-3
 
+# phase 20: data parallel; iterations and windows of the one-rank NCCL
+# job, pretraining steps of the two gloo ranks, their time limit
+DP_ITERS = 2
+DP_TIMEOUT = 600
+DP_B = HEADLINE["batch_size"] // 2  # a rank's rows at D = 2
+# phase 20 (b)'s limits, D = 2 against one rank at batch 20 (my chip runs:
+# sound runs read losses within 1.4e-7, gradient cosine 0.999982, update
+# cosine 0.998161; a run drawing different batches on the two sides read
+# a gradient cosine of 0.988578).  The cosines do not see scale, and the
+# first RMSprop / AdamW step does not either: the gradient norms do (x2 or
+# x0.5 for gradients summed twice or averaged).  The update cosine of the
+# first RMSprop step is rounding-limited: it divides every gradient by its
+# own size, so entries that are bf16 noise on both sides flip sign.
+DP_LOSS_RTOL = 1e-4
+DP_GRAD_COS = 0.9999
+DP_NORM_RTOL = 1e-3
+DP_UPDATE_COS = 0.995
+# phase 21: the offline pipeline; panoramas rendered (the other viewpoints
+# turn their headings), the skybox face size, the bf16 / f32 cosine floor
+OFFLINE_RENDERED = 2
+OFFLINE_FACE = 256
+OFFLINE_COS = 0.99
 KERNEL_INFO = {
     "bilstm_scan": ("dasa_tpu_torch/csrc/lstm_fwd.cu",
                     "dasa_tpu/ops/lstm.py:38 (_fwd_kernel)"),
@@ -539,7 +600,8 @@ def phase_build():
 
 def phase_kernels(seed: int):
     """Each kernel at its headline shapes against its plain version: the
-    episodic batch (B = 20) and the stream window's slot rows (2B = 40)."""
+    episodic batch (B = 20), a rank's rows of it at D = 2 (10) and the
+    stream window's slot rows (2B = 40)."""
     import torch
 
     from dasa_tpu_torch.ops import _build
@@ -554,19 +616,19 @@ def phase_kernels(seed: int):
     n_sm = _build.sm_count(torch.empty(1, device=dev))
     rows = []
     start = time.perf_counter()
-    for B in (20, STREAM_W):
-        tag = "" if B == 20 else f"B{B}"
+    for B, tag in ((20, ""), (DP_B, f"dp,B{DP_B}"),
+                   (STREAM_W, f"B{STREAM_W}")):
         k1, k2, (mask, wh, mask2, wh2) = kernel_rows_lstm(rnd, gen, B, n_sm,
                                                           tag)
         k3, (w_t, bias) = kernel_rows_adain(rnd, gen, B, n_sm, tag)
         k4, (w_in, w_s, b_s) = kernel_rows_shift(rnd, B, n_sm, tag)
         rows += k1 + k2 + k3 + k4
-        if tag:  # BiLstmScanFn at the stream width (one launch a direction)
+        if B == STREAM_W:  # BiLstmScanFn one launch a direction
             check_bilstm_fn_grads(rnd, mask2, wh2, "BiLstmScanFn B40")
             check_lstm_fn_grads(rnd, mask, wh, "LstmScanFn B40")
         else:
             check_function_grads(rnd, mask, wh, w_t, bias, w_in, w_s, b_s,
-                                 mask2, wh2)
+                                 mask2, wh2, tag)
     # the speaker's BiLSTMs: selfTrain's relabel (B = 20, both directions
     # in one launch) and speaker training (B = 64, one launch a direction)
     for B in (20, SPK_B):
@@ -978,10 +1040,10 @@ def check_lstm_fn_grads(rnd, mask, wh, name):
 
 
 def check_function_grads(rnd, mask, wh, w_ta, b_a, w_in, w_s, b_s, mask2,
-                         wh2):
+                         wh2, tag=""):
     """Gradients of LstmScanFn, BiLstmScanFn, AdainGateFn and
     ShiftAttendFn (kernels forward) against autograd through the plain
-    versions, at the headline shapes, for a random cotangent."""
+    versions, at the mask's batch, for a random cotangent."""
     from dasa_tpu_torch.ops.adain import AdainGateFn, adain_channel_gate_ref
     from dasa_tpu_torch.ops.shift_attention import (
         ShiftAttendFn,
@@ -990,19 +1052,21 @@ def check_function_grads(rnd, mask, wh, w_ta, b_a, w_in, w_s, b_s, mask2,
 
     B = mask.shape[1]
     H = wh.shape[0]
-    check_lstm_fn_grads(rnd, mask, wh, "LstmScanFn")
-    check_bilstm_fn_grads(rnd, mask2, wh2, "BiLstmScanFn")
+    check_lstm_fn_grads(rnd, mask, wh, _named("LstmScanFn", tag))
+    check_bilstm_fn_grads(rnd, mask2, wh2, _named("BiLstmScanFn", tag))
     C = w_ta.shape[0]
     f, d = rnd(B, 36, C).relu(), rnd(B, 36, C).relu()
     noise = (rnd(C) > -0.25).to(f.dtype) / 0.6
     # the same f32 arithmetic; the outputs round to bf16 once
-    compare("AdainGateFn", AdainGateFn.apply, adain_channel_gate_ref,
+    compare(_named("AdainGateFn", tag), AdainGateFn.apply,
+            adain_channel_gate_ref,
             (f, d, w_ta.t(), b_a, noise), ("f", "d", "w", "b", "noise"),
             (rnd(B, 36, C, scale=0.05),), 2e-2)
     h = rnd(B, H, scale=0.5)
     ctx = rnd(B, 36, w_in.shape[1]).relu()
     # the plain version rounds the smoothed attention to bf16
-    compare("ShiftAttendFn", ShiftAttendFn.apply, shift_attend_ref,
+    compare(_named("ShiftAttendFn", tag), ShiftAttendFn.apply,
+            shift_attend_ref,
             (h, ctx, w_in, w_s, b_s), ("h", "ctx", "w_in", "w_shift",
                                        "b_shift"),
             (rnd(B, w_in.shape[1], scale=0.05),
@@ -1055,6 +1119,10 @@ def phase_main(cfg, world, seed: int):
     launches = ops.kernel_launches()
     del agent.test  # the wrapper's reference cycle would outlive the agent
     check_coverage(world, trajs)
+    backends = {split: env.backend for split, env in world.envs.items()}
+    print(f"  sim backends: {backends}", flush=True)
+    if set(backends.values()) != {"native"}:
+        fail(f"the world's envs run {backends}, not the native engine")
     episodes = 0
     for split, summary in out.items():
         n = world.envs[split].size()
@@ -2739,6 +2807,589 @@ def phase_knobs(cfg, world, seed: int, root: str):
     return total
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def timed_train_iters(agent, store):
+    """Wrap ``agent.train`` to time each call (train() runs one iteration
+    per log interval), synchronizing the card around it."""
+    import torch
+
+    run_iters = agent.train
+
+    def timed(n_iters, feedback):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        run_iters(n_iters, feedback=feedback)
+        torch.cuda.synchronize()
+        store.append(time.perf_counter() - start)
+
+    agent.train = timed
+
+
+def phase_dp(cfg, world, seed: int, root: str):
+    """(a) A one-rank NCCL job through the launcher variables: train() with
+    data_parallel, DP_ITERS episodic iterations, then DP_ITERS stream
+    windows, each run ending in the rank-0 checkpoint; every kernel must
+    launch.  (b) Two gloo ranks on this card (NCCL refuses two ranks on
+    one device), started as processes of this script."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.parallel import distributed
+    from dasa_tpu_torch.train.trainer import make_agent, train
+
+    launch = {"COORDINATOR_ADDRESS": f"localhost:{free_port()}",
+              "NUM_PROCESSES": "1", "PROCESS_ID": "0"}
+    os.environ.update(launch)
+    try:
+        cfg1 = cfg.replace(data_parallel=True, iters=DP_ITERS, log_every=1,
+                           val_every=10 ** 9, save_every=10 ** 9, name="dp",
+                           snap_dir=os.path.join(root, "snap"),
+                           log_dir=os.path.join(root, "log"))
+        agent = make_agent(cfg1, world, rng_seed=seed)
+        backend = torch.distributed.get_backend()
+        if backend != "nccl" or agent.mesh is None or agent._dp is None:
+            fail(f"dp (a): backend {backend}, mesh {agent.mesh}: expected "
+                 "a one-rank NCCL data axis")
+        iter_s, window_s = [], []
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_kernel_launches()
+        timed_train_iters(agent, iter_s)
+        train(cfg1, world, agent=agent)
+        losses = [float(x) for x in agent.logs["loss"]]
+        del agent.train
+        agent.cfg = agent.cfg.replace(rollout_mode="stream")
+        timed_train_iters(agent, window_s)
+        train(cfg1.replace(rollout_mode="stream"), world, agent=agent)
+        torch.cuda.synchronize()
+        launches = ops.kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+        losses += [float(x) for x in agent.logs["loss"]]
+        del agent.train
+        print(f"  (a) one-rank NCCL job: launches {launches}", flush=True)
+        for name in PATH_KERNELS:
+            if launches[name] <= 0:
+                fail(f"dp (a): kernel {name} never launched")
+        if len(iter_s) != DP_ITERS or len(window_s) != DP_ITERS or \
+                agent.iter_count != 2 * DP_ITERS:
+            fail(f"dp (a): {len(iter_s)} iterations, {len(window_s)} "
+                 f"windows, {agent.iter_count} optimizer steps")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"dp (a): non-finite loss in {losses}")
+        ckpt = os.path.join(root, "snap", "dp", "state_dict",
+                            f"LAST_iter{DP_ITERS}")
+        if not os.path.isfile(ckpt):
+            fail(f"dp (a): no rank-0 checkpoint {ckpt}")
+        print(f"  (a) s an iteration {[round(x, 4) for x in iter_s]}, s a "
+              f"window {[round(x, 4) for x in window_s]}; losses "
+              f"{[round(x, 4) for x in losses]}; peak memory "
+              f"{peak / 2 ** 30:.2f} GiB; checkpoint {os.path.basename(ckpt)}"
+              f"; card {card_name()}", flush=True)
+        del agent
+    finally:
+        distributed.shutdown()
+        for key in launch:
+            os.environ.pop(key, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, phase_dp_ranks(cfg, seed, root)
+
+
+def phase_dp_ranks(cfg, seed: int, root: str):
+    """(b): two rank processes (``--dp-worker``) over gloo; each writes
+    its measurements to ``dp_rank{r}.json``, which this reads and checks."""
+    spec = {"data_dir": cfg.data_dir, "connectivity_dir":
+            cfg.connectivity_dir, "seed": seed, "root": root,
+            "coordinator": f"localhost:{free_port()}"}
+    spec_path = os.path.join(root, "dp_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    start = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dp-worker", str(r), "--dp-spec", spec_path])
+             for r in range(2)]
+    try:
+        codes = [p.wait(timeout=DP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - start
+    if codes != [0, 0]:
+        fail(f"dp (b): rank processes exited {codes}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"dp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r, out in enumerate(ranks):
+        print(f"  (b) rank {r}: backend {out['backend']}, s an iteration "
+              f"{out['iter_s']:.4f}, s a window {out['window_s']:.4f}, s a "
+              f"pretraining step {[round(x, 4) for x in out['pretrain_s']]}, "
+              f"peak memory {out['peak'] / 2 ** 30:.2f} GiB, launches "
+              f"{out['launches']}", flush=True)
+        if out["backend"] != "gloo":
+            fail(f"dp (b): rank {r} backend {out['backend']}")
+        for name in PATH_KERNELS:
+            if out["launches"][name] <= 0:
+                fail(f"dp (b): kernel {name} never launched on rank {r}")
+    ref = ranks[0]["reference"]
+    r = ref["bf16"]
+    norm, r_norm = r["grad_norms"]
+    print(f"  (b) episodic pair (bf16, always) at D = 2 against one rank at "
+          f"batch {cfg.batch_size}: losses {ranks[0]['losses']['bf16']} vs "
+          f"{r['losses']}; gradient cosine {r['grad_cos']:.6f}, gradient "
+          f"norm {norm:.6f} vs {r_norm:.6f} (ratio {norm / r_norm:.6f}), "
+          f"update cosine {r['update_cos']:.6f}; argmax paths equal "
+          f"{r['same_paths']}/{r['paths']}", flush=True)
+    for got, want in zip(ranks[0]["losses"]["bf16"], r["losses"]):
+        if not abs(got - want) <= DP_LOSS_RTOL * abs(want):
+            fail(f"dp (b): loss {got} vs one rank's {want} beyond "
+                 f"{DP_LOSS_RTOL}")
+    if not (r["grad_cos"] >= DP_GRAD_COS
+            and abs(norm / r_norm - 1) <= DP_NORM_RTOL
+            and r["update_cos"] >= DP_UPDATE_COS):
+        fail(f"dp (b): gradient cosine {r['grad_cos']} (floor "
+             f"{DP_GRAD_COS}), norm ratio {norm / r_norm} (within "
+             f"{DP_NORM_RTOL} of 1), update cosine {r['update_cos']} "
+             f"(floor {DP_UPDATE_COS})")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        fail(f"dp (b): the ranks report different losses {ranks[0]['losses']}"
+             f" / {ranks[1]['losses']}")
+    uids = ranks[0]["window_uids"]
+    print(f"  (b) two stream windows at D = 2: {len(uids)} episodes taken, "
+          f"{len(set(uids))} distinct", flush=True)
+    if not uids or len(uids) != len(set(uids)):
+        fail("dp (b): an episode was taken twice across the ranks")
+    p_norms, r_pnorms = ref["pretrain_grad_norms"]
+    print(f"  (b) pretraining at D = 2 against one rank: losses "
+          f"{ranks[0]['pretrain_losses']} vs {ref['pretrain_losses']}; "
+          f"gradient norms {p_norms} vs {r_pnorms}; update cosine "
+          f"{ref['pretrain_update_cos']:.6f}", flush=True)
+    for got, want, rtol in (
+            [(a, b, DP_LOSS_RTOL) for a, b in zip(
+                ranks[0]["pretrain_losses"], ref["pretrain_losses"])]
+            + [(a, b, DP_NORM_RTOL) for a, b in zip(p_norms, r_pnorms)]):
+        if not abs(got - want) <= rtol * abs(want):
+            fail(f"dp (b): pretraining loss or gradient norm {got} vs "
+                 f"{want} beyond {rtol}")
+    if not ref["pretrain_update_cos"] >= DP_GRAD_COS:
+        fail(f"dp (b): pretraining update cosine "
+             f"{ref['pretrain_update_cos']} below {DP_GRAD_COS}")
+    print(f"  (b) both ranks: {seconds:.1f} s wall (process start "
+          "included)", flush=True)
+    return [out["launches"] for out in ranks]
+
+
+def _cos(a, b) -> float:
+    return float((a @ b) / (a.norm() * b.norm()))
+
+
+def dp_worker(rank: int, spec_path: str) -> None:
+    """One rank of phase 20 (b), at D = 2 with dropout off: the episodic
+    teacher + fused argmax pair and its step (twice: the first compared,
+    the second timed), two stream windows and their steps (the second
+    timed) and two pretraining steps; then, for the comparison, rank 0
+    runs the first pair and rank 1 the pretraining steps on one rank (no
+    mesh)."""
+    import torch
+
+    from dasa_tpu_torch import ops
+    from dasa_tpu_torch.config import Config
+    from dasa_tpu_torch.parallel import distributed
+    from dasa_tpu_torch.pretrain import (
+        PretrainBatcher,
+        generate_pretrain_records,
+    )
+    from dasa_tpu_torch.pretrain.trainer import Pretrainer
+    from dasa_tpu_torch.train.trainer import World, make_agent
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    os.environ.update(COORDINATOR_ADDRESS=spec["coordinator"],
+                      NUM_PROCESSES="2", PROCESS_ID=str(rank))
+    # two ranks share the one card: gloo, asked for (NCCL takes a card a
+    # rank)
+    distributed.initialize(backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = spec["seed"]
+    cfg = Config(**{**HEADLINE, **TRAIN, **NO_DROPOUT}, data_parallel=True,
+                 use_pallas="always", data_dir=spec["data_dir"],
+                 connectivity_dir=spec["connectivity_dir"], seed=seed)
+    world = World(cfg)
+    agent = make_agent(cfg, world, rng_seed=seed)
+    mesh = agent.mesh
+    backend = torch.distributed.get_backend()
+    env = world.envs["train"]
+    # the split's order and shuffling state: a batch that wraps the split
+    # reshuffles it, so each pair starts from the same two
+    order, shuffle_state = list(env.data), env._rng.getstate()
+
+    def pair(agent):
+        """The teacher + fused argmax pair of the split's first two
+        batches and its step: (losses, applied gradients, update of the
+        trained components, the argmax pass's paths of all ranks)."""
+        env.data[:] = order
+        env._rng.setstate(shuffle_state)
+        env.reset_epoch()
+        params = [p for name, p in agent.policy.named_parameters()
+                  if name.startswith(TRAINED)]
+        before = torch.cat([p.detach().flatten().float() for p in params])
+        agent.zero_grad()
+        agent.device_rollout(train_ml=0.2, train_rl=False,
+                             feedback="teacher")
+        record = {}
+        agent.device_rollout(train_ml=0.2, train_rl=True, feedback="argmax",
+                             record=record)
+        rec = record["stacked"]
+        paths = [rec["action"][rec["active"][:, i], i].tolist()
+                 for i in range(rec["action"].shape[1])]
+        if agent.mesh is not None:
+            paths = sum(agent.mesh.gather_objects(paths), [])
+        grads = {}
+        step = agent.optimizer.step
+
+        def spy():
+            grads["g"] = torch.cat([
+                (p.grad if p.grad is not None else torch.zeros_like(p))
+                .flatten().float() for p in params])
+            step()
+
+        agent.optimizer.step = spy
+        agent.optim_step()
+        del agent.optimizer.step
+        after = torch.cat([p.detach().flatten().float() for p in params])
+        return ([float(x) for x in agent.losses], grads["g"], after - before,
+                paths)
+
+    def window():
+        agent.zero_grad()
+        agent.device_rollout_stream(0.2, feedback="sample", record=True)
+        agent.optim_step()
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    # the first pair, from the initial weights, is compared with one rank's;
+    # the second pair and the second window are timed (the first ones warm
+    # up)
+    compared = {"bf16": pair(agent)}
+    start = time.perf_counter()
+    pair(agent)
+    torch.cuda.synchronize()
+    iter_s = time.perf_counter() - start
+    window()
+    start = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - start
+    launches = ops.kernel_launches()
+    taken = []
+    for rec in agent._stream_host().records:
+        taken += rec["rec_uid"][rec["rec_take"]
+                                & (rec["rec_uid"] >= 0)].cpu().tolist()
+    uids = sum(mesh.gather_objects(taken), [])
+
+    tok = world.tok
+    if "<MASK>" not in tok.word_to_index:
+        tok.add_word("<MASK>")
+    pcfg = cfg.replace(iters=DP_ITERS, warm_steps=1)
+    batches = list(PretrainBatcher(
+        generate_pretrain_records(env, max_steps=cfg.max_action),
+        cfg.batch_size, len(tok), tok.word_to_index["<MASK>"],
+        seed=seed).epoch())[:DP_ITERS]
+
+    def pretrain(pmesh):
+        """(losses, update, seconds, the norm of each step's gradients
+        as the optimizer takes them: summed over the ranks, unclipped)."""
+        pt = Pretrainer(pcfg, world.feature_db, len(tok), mesh=pmesh)
+        before = torch.cat([p.detach().flatten().float()
+                            for p in pt.model.parameters()])
+        norms = []
+        step = pt.optimizer.step
+
+        def spy():
+            norms.append(float(torch.cat([
+                p.grad.flatten().float() for p in pt.optimizer.params
+                if p.grad is not None]).norm()))
+            step()
+
+        pt.optimizer.step = spy
+        out = [pt.train_step(b)[0] for b in batches]
+        after = torch.cat([p.detach().flatten().float()
+                           for p in pt.model.parameters()])
+        seconds = [h["seconds"] for h in pt.history]
+        return out, after - before, seconds, norms
+
+    p_losses, p_update, p_seconds, p_norms = pretrain(mesh)
+    peak = torch.cuda.max_memory_allocated()
+    out = {"backend": backend,
+           "losses": {k: v[0] for k, v in compared.items()},
+           "iter_s": iter_s,
+           "window_s": window_s, "launches": launches, "window_uids": uids,
+           "pretrain_losses": p_losses, "pretrain_s": p_seconds,
+           "peak": peak}
+    # one rank's runs, side by side: rank 0 the pair, rank 1 pretraining
+    # (each holds the job's gradients and updates, equal on both ranks)
+    if rank == 0:
+        losses, grads, update, paths = compared["bf16"]
+        r_losses, r_grads, r_update, r_paths = pair(make_agent(
+            cfg.replace(data_parallel=False), world, rng_seed=seed))
+        ref = {"bf16": {
+            "losses": r_losses, "grad_cos": _cos(grads, r_grads),
+            "grad_norms": [float(grads.norm()), float(r_grads.norm())],
+            "update_cos": _cos(update, r_update),
+            "same_paths": sum(a == b for a, b in zip(paths, r_paths)),
+            "paths": len(r_paths)}}
+    else:
+        r_plosses, r_pupdate, _, r_pnorms = pretrain(None)
+        ref = {"pretrain_losses": r_plosses,
+               "pretrain_update_cos": _cos(p_update, r_pupdate),
+               "pretrain_grad_norms": [p_norms, r_pnorms]}
+    out["reference"] = {k: v for part in mesh.gather_objects(ref)
+                        for k, v in part.items()}
+    mesh.barrier()
+    with open(os.path.join(spec["root"], f"dp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def conv_flops(model, image_size) -> float:
+    """Operations (2 per multiply-add) of the network's convolutions on one
+    (H, W) image, counted from their output shapes with forward hooks."""
+    import torch
+
+    total = [0.0]
+
+    def hook(mod, _inp, out):
+        k = mod.kernel_size[0] * mod.kernel_size[1]
+        total[0] += 2.0 * out.numel() * mod.in_channels // mod.groups * k
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(1, *image_size, 3, device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def skybox_views(rng, face: int):
+    """The 36 views (480 x 640) of one panorama rendered by sim/render.py
+    from seeded depth-like skybox faces: a smooth field per face plus
+    noise, in metres."""
+    from dasa_tpu_torch.sim.render import render_panorama
+
+    yy, xx = np.mgrid[0:face, 0:face] / face
+    faces = []
+    for _ in range(6):
+        a, b, c = rng.uniform(0.5, 4.0, 3)
+        field = 1.0 + a * np.sin(b * np.pi * xx) ** 2 + c * yy
+        faces.append((field + rng.uniform(0, 0.1, field.shape))[..., None])
+    return render_panorama(faces, width=640, height=480)[..., 0].astype(
+        np.float32)
+
+
+def phase_offline(cfg, seed: int, root: str):
+    """Render, featurize on the card, check against f32, write the npy
+    pair for every viewpoint of the headline world's val_unseen scan, load
+    it as that split's depth_db and run one valid() batch on it.  Returns
+    (agent, world) for phase 22."""
+    import torch
+
+    from dasa_tpu_torch.pipelines.depth_features import (
+        ViewFeaturizer,
+        featurize_views,
+        normalize_depth,
+    )
+    from dasa_tpu_torch.train.trainer import World, make_agent, valid
+
+    rng = np.random.default_rng(seed)
+    start = time.perf_counter()
+    panos = [skybox_views(rng, OFFLINE_FACE) for _ in range(OFFLINE_RENDERED)]
+    render_s = time.perf_counter() - start
+    featurizer = ViewFeaturizer(seed=seed)
+    x = torch.from_numpy(np.stack([normalize_depth(v) for v in panos[0]])
+                         .astype(np.float32)).cuda()
+    ms = time_ms(lambda: featurizer.features(x), iters=5, warmup=2)
+    dev_ms = device_ms(lambda: featurizer.features(x), iters=3, warmup=1,
+                       reps=3)
+    ref = ViewFeaturizer(seed=seed, dtype=torch.float32)
+    got, want = featurizer.features(x), ref.features(x)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+    f32_ms = time_ms(lambda: ref.features(x), iters=3, warmup=1)
+    flops = conv_flops(ref.model, featurizer.image_size) * x.shape[0]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_bytes = x.numel() * 3 * 2 + 2048 * x.shape[0] * 4 + 2 * sum(
+        p.numel() for p in featurizer.model.parameters())
+    bound, bound_by = bound_ms(n_bytes, flops)
+    print(f"  rendered {OFFLINE_RENDERED} panoramas of 36 views (480 x 640) "
+          f"from seeded skyboxes in {render_s:.2f} s on the host", flush=True)
+    print(f"  ResNet-152 bf16 against f32 on one viewpoint's 36 views: "
+          f"cosine of each view's 2048 features min {float(cos.min()):.6f} "
+          f"(limit {OFFLINE_COS})", flush=True)
+    if not (bool(got.isfinite().all()) and float(cos.min()) >= OFFLINE_COS):
+        fail(f"offline: bf16 features against f32: cosine {float(cos.min())}")
+    # the val_unseen split's world: every viewpoint, in the image
+    # features' row order
+    world = World(cfg, splits=(), val_splits=("val_unseen",))
+    ids = [tuple(i.split("_", 1)) for i in world.feature_db.ids]
+
+    def load_views(scan, vp):
+        """A rendered panorama, its headings turned by the viewpoint's
+        index so that no two viewpoints see the same views."""
+        k = ids.index((scan, vp))
+        views = panos[k % OFFLINE_RENDERED].reshape(3, 12, 480, 640)
+        return np.roll(views, k // OFFLINE_RENDERED, axis=1).reshape(
+            36, 480, 640)
+
+    prefix = os.path.join(root, "depth", "resnet152_depth")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    values = featurize_views(ids, load_views, prefix, featurizer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    n_img = 36 * len(ids)
+    print(f"  featurized {len(ids)} viewpoints ({n_img} views) in "
+          f"{wall:.2f} s: {1e3 * wall / len(ids):.2f} ms a viewpoint with the "
+          f"host's normalisation and copies, {n_img / wall:.1f} images/s; one "
+          f"viewpoint on the card {ms:.2f} ms (CUDA events), {dev_ms:.2f} ms "
+          f"device, f32 {f32_ms:.2f} ms; bound {bound:.3f} ms ({bound_by}: "
+          f"{flops / x.shape[0] / 1e9:.1f} GFLOP an image); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; card {card_name()}", flush=True)
+    cfg2 = cfg.replace(depth_features_path=prefix + ".npy")
+    world = World(cfg2, splits=(), val_splits=("val_unseen",))
+    if world.depth_db.ids != [f"{s}_{v}" for s, v in ids] or \
+            not np.array_equal(world.depth_db.values, values):
+        fail("offline: the npy pair read back differs")
+    agent = make_agent(cfg2, world, env_name="val_unseen", rng_seed=seed)
+    out = valid(cfg2, world, agent=agent)
+    check_summary("offline valid()", out["val_unseen"])
+    print(f"  valid() of val_unseen (one batch) on the featurized depth: "
+          f"SR {out['val_unseen']['success_rate']:.4f} SPL "
+          f"{out['val_unseen']['spl']:.4f}", flush=True)
+    return agent, world
+
+
+def phase_native(world, agent):
+    """The native engine against the python one on the synthetic world:
+    candidates, a teacher walk's observations, and the host-rollout
+    evaluation of val_unseen (trajectories, SR, SPL), with the host
+    seconds of each."""
+    from dasa_tpu_torch.env import R2REnv
+    from dasa_tpu_torch.sim import csim
+    from dasa_tpu_torch.sim.engine import compute_pano_candidates
+
+    lib = csim.load_library()
+    built = ("found built" if csim.build_seconds is None else
+             f"built by make in {csim.build_seconds:.2f} s")
+    print(f"  native library {os.path.relpath(lib._name)}: {built}",
+          flush=True)
+    if not os.path.realpath(lib._name).startswith(
+            os.path.realpath(str(csim.BUILD_DIR))):
+        fail(f"native: loaded {lib._name}, not the port's build")
+    env = world.envs["val_unseen"]
+    if env.backend != "native":
+        fail(f"native: the world's env runs {env.backend}")
+    n = 0
+    for scan in env.scans:
+        g, h = env.graphs[scan], env._scan_handle[scan]
+        for node in np.nonzero(g.included)[0]:
+            py = compute_pano_candidates(g, int(node))
+            nbr, point, nh, elev, rd = env.native.candidates(h, int(node))
+            n += 1
+            if not (np.array_equal(nbr, py.nbr_ix)
+                    and np.array_equal(point, py.point_id)
+                    and np.allclose(nh, py.normalized_heading, atol=1e-5)
+                    and np.allclose(elev, py.elevation, atol=1e-5)
+                    and np.allclose(rd, py.rel_distance, atol=1e-4)):
+                fail(f"native: candidates of {scan} node {node} differ")
+    cfg = agent.cfg
+    items = world.envs["val_unseen"].data
+    envs = {b: R2REnv(world.feature_db, items, batch_size=cfg.batch_size,
+                      seed=cfg.seed, connectivity_dir=cfg.connectivity_dir,
+                      max_candidates=cfg.max_candidates,
+                      max_input=cfg.max_input, backend=b)
+            for b in ("native", "python")}
+    obs = {b: e.reset() for b, e in envs.items()}
+    trajs = {b: [[t] for t in e.state_tuples()] for b, e in envs.items()}
+    steps = 0
+    while True:
+        a, b = obs["native"], obs["python"]
+        for f in ("feat_row", "view_index", "cand_point_id", "cand_nbr_ix",
+                  "cand_n", "teacher", "back_teacher"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                fail(f"native: obs field {f} differs at step {steps}")
+        for f in ("heading", "elevation", "cand_heading", "cand_elevation",
+                  "distance", "progress"):
+            if not np.allclose(getattr(a, f), getattr(b, f), atol=1e-4):
+                fail(f"native: obs field {f} differs at step {steps}")
+        act = np.where(b.teacher < b.cand_n, b.teacher, -1)
+        if (act < 0).all():
+            break
+        obs = {k: e.step(act, trajs[k]) for k, e in envs.items()}
+        steps += 1
+    if [[v for v, _, _ in t] for t in trajs["native"]] != \
+            [[v for v, _, _ in t] for t in trajs["python"]]:
+        fail("native: teacher-walk trajectories differ")
+    print(f"  candidates of {n} nodes and a teacher walk of {steps} steps "
+          f"over {cfg.batch_size} episodes equal", flush=True)
+    agent.cfg = cfg.replace(device_rollout="never")
+    evals = {}
+    for backend in ("native", "python"):
+        env = R2REnv(world.feature_db, world.envs["val_unseen"].data,
+                     batch_size=cfg.batch_size, seed=cfg.seed,
+                     connectivity_dir=cfg.connectivity_dir,
+                     max_candidates=cfg.max_candidates,
+                     max_input=cfg.max_input, backend=backend,
+                     name="val_unseen")
+        env_s = [0.0]
+        for name in ("reset", "step"):
+            fn = getattr(env, name)
+
+            def wrapped(*args, fn=fn, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                env_s[0] += time.perf_counter() - t0
+                return out
+
+            setattr(env, name, wrapped)
+        agent.env = env
+        start = time.perf_counter()
+        results = agent.test(feedback="argmax")
+        seconds = time.perf_counter() - start
+        summary, _ = world.evaluators["val_unseen"].score(results)
+        evals[backend] = ({r["instr_id"]: [v for v, _, _ in r["trajectory"]]
+                           for r in results}, summary)
+        print(f"  host-rollout evaluation of val_unseen under {backend}: "
+              f"{seconds:.3f} s, the env's reset / step {env_s[0]:.4f} s; SR "
+              f"{summary['success_rate']:.4f} SPL {summary['spl']:.4f}",
+              flush=True)
+    agent.cfg = cfg
+    (t_nat, s_nat), (t_py, s_py) = evals["native"], evals["python"]
+    if t_nat != t_py:
+        fail("native: valid() trajectories differ between the backends")
+    for key in ("success_rate", "spl"):
+        if abs(s_nat[key] - s_py[key]) > 1e-9:
+            fail(f"native: {key} {s_nat[key]} vs {s_py[key]}")
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2888,8 +3539,12 @@ def main() -> None:
                     default="build,kernels,main,compare,train,train-compare,"
                             "stream,stream-eval,speaker,speaker-compare,"
                             "selftrain,host,search,pretrain,pretrain-chain,"
-                            "variants,encoders,ndh,knobs")
+                            "variants,encoders,ndh,knobs,dp,offline,native")
     ap.add_argument("--seed", type=int, default=0)
+    # phase 20 (b)'s rank processes
+    ap.add_argument("--dp-worker", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dp-spec", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2901,11 +3556,15 @@ def main() -> None:
     if not os.path.isdir(os.path.join(here, "dasa_tpu_torch")):
         fail(f"dasa_tpu_torch not found beside {__file__}")
     sys.path.insert(0, here)
+    if args.dp_worker is not None:
+        dp_worker(args.dp_worker, args.dp_spec)
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     kind = torch.cuda.get_device_name(0)
-    clock = {"name": None, "start": time.perf_counter()}
+    wall_start = time.perf_counter()
+    clock = {"name": None, "start": wall_start}
 
     def header(text):
         """Print a phase's header, after the wall time of the one before."""
@@ -2931,10 +3590,12 @@ def main() -> None:
     launches_host, launches_search, launches_chain = {}, {}, {}
     launches_variants, launches_encoders = {}, {}
     launches_ndh, launches_knobs = {}, {}
+    launches_dp, launches_dp_ranks = {}, [{}, {}]
     if phases & {"main", "compare", "train", "train-compare", "stream",
                  "stream-eval", "profile", "speaker", "speaker-compare",
                  "selftrain", "host", "search", "pretrain",
-                 "pretrain-chain", "variants", "encoders", "ndh", "knobs"}:
+                 "pretrain-chain", "variants", "encoders", "ndh", "knobs",
+                 "dp", "offline", "native"}:
         with tempfile.TemporaryDirectory() as root:
             cfg, world = headline_world(root, args.seed, use_pallas="always")
             cfg_train = cfg.replace(**TRAIN)
@@ -3019,15 +3680,30 @@ def main() -> None:
                        "modes")
                 launches_knobs = phase_knobs(cfg_train, world, args.seed,
                                              root)
+            if "dp" in phases:
+                header("== phase 20 (dp): data parallel, a one-rank NCCL job "
+                       "and two gloo ranks on the card")
+                launches_dp, launches_dp_ranks = phase_dp(
+                    cfg_train, world, args.seed, root)
+            if phases & {"offline", "native"}:
+                header("== phase 21 (offline): render, ResNet-152 "
+                       "featurization on the card, the npy pair as depth_db")
+                off_agent, off_world = phase_offline(cfg, args.seed, root)
+            if "native" in phases:
+                header("== phase 22 (native): the native sim engine against "
+                       "the python one")
+                phase_native(off_world, off_agent)
+                del off_agent
             if "profile" in phases:
                 header("== profile: one eval batch, one training iteration, "
                        "one stream window, one selfTrain iteration, one "
                        "search batch, one host-rollout iteration")
                 phase_profile(cfg, cfg_train, world, args.seed)
     header(None)
+    print(f"wall time: {time.perf_counter() - wall_start:.2f} s", flush=True)
     if rows:
         print("== phase 2 rows with the launches of phases 3, 5, 7, 9, 11, "
-              "12, 13, 15, 16, 17, 18 and 19", flush=True)
+              "12, 13, 15, 16, 17, 18, 19 and 20", flush=True)
     for r in rows:
         base = r["name"].split("[")[0]
         per_token = ("" if "us_per_token" not in r
@@ -3044,9 +3720,11 @@ def main() -> None:
               f"{launches_chain.get(base, 0)} in the pretrained chain, "
               f"{launches_variants.get(base, 0)} in the variants, "
               f"{launches_encoders.get(base, 0)} in the encoders, "
-              f"{launches_ndh.get(base, 0)} in NDH and "
-              f"{launches_knobs.get(base, 0)} in the knobs"
-              f"{per_token}",
+              f"{launches_ndh.get(base, 0)} in NDH, "
+              f"{launches_knobs.get(base, 0)} in the knobs, "
+              f"{launches_dp.get(base, 0)} in the one-rank NCCL job and "
+              f"{[r.get(base, 0) for r in launches_dp_ranks]} on the two "
+              f"gloo ranks{per_token}",
               flush=True)
     out = []
     for r in rows:
@@ -3068,6 +3746,9 @@ def main() -> None:
                     "launches_encoders": launches_encoders.get(base, 0),
                     "launches_ndh": launches_ndh.get(base, 0),
                     "launches_knobs": launches_knobs.get(base, 0),
+                    "launches_dp": launches_dp.get(base, 0),
+                    "launches_dp_ranks": [r.get(base, 0)
+                                          for r in launches_dp_ranks],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -89,6 +89,7 @@ from dasa_tpu_torch.models.policy import (
     StepInputs,
     decoder_state_width,
 )
+from dasa_tpu_torch.parallel import DataMesh, rank_seed
 from dasa_tpu_torch.sim.engine import micro_trajectory
 from dasa_tpu_torch.train.optim import COMPONENTS, ComponentOptimizer
 from dasa_tpu_torch.utils import flax_msgpack
@@ -181,28 +182,32 @@ def back_ce(aux, sobs):
     return -blogp.gather(1, sobs["back_teacher"][:, None])[:, 0]
 
 
-def aux_terms(cfg, aux, logp, sobs, active, pm_target) -> dict:
+def aux_terms(cfg, aux, logp, sobs, active, pm_target, real,
+              n_rows: int) -> dict:
     """One step's auxiliary loss terms of the episodic passes
     (seq2seq.py:481-515, 897-956): the back head's cross-entropy per row
     (every row), the progress monitor's and agent_advanced's squared error
-    against the episode-start progress ``pm_target`` as batch means (0 on
-    a step where no row is active), and the MT agent's KL as a mean over
-    the step's valid elements."""
+    against the episode-start progress ``pm_target`` as batch means over
+    the ``n_rows`` rows of the whole batch (all ranks'), times ``real`` (0
+    on a step where no row of the batch is active), and the MT agent's KL
+    as the step's summed elements (``kl``) and their count (``kl_cnt``),
+    which :meth:`Seq2SeqAgent._finish_loss` divides once the count is
+    summed over the ranks."""
     outs = {}
-    real = active.any().float()
     if cfg.pred_back:
         outs["back_ce"] = back_ce(aux, sobs)
     if cfg.pred_pm:
         outs["pm_mse"] = ((aux["pm_score"].float() - pm_target) ** 2
-                          ).mean() * real
+                          ).sum() / n_rows * real
     if cfg.agent_type == "advanced":
         outs["adv_pm_mse"] = ((aux["pred_progress"].float() - pm_target)
-                              ** 2).mean() * real
+                              ** 2).sum() / n_rows * real
     if cfg.agent_type == "mt":
         kl_row, cnt_row = mt_kl_rows(
             logp, sobs["teacher"], sobs["cand_point_id"], sobs["cand_n"],
             active & (sobs["teacher"] < sobs["cand_n"]))
-        outs["kl"] = kl_row.sum() / cnt_row.sum().clamp(min=1.0)
+        outs["kl"] = kl_row.sum()
+        outs["kl_cnt"] = cnt_row.sum()
     return outs
 
 
@@ -292,15 +297,36 @@ class Seq2SeqAgent(StreamMixin):
     AdaIN gate and the shift attention, ``never`` none.  The JAX package
     routes only the Dic top LSTM through its kernel; the others compute
     the same function.  ``vocab_size`` is the word vocab of the encoders
-    that embed words themselves."""
+    that embed words themselves.
+
+    ``mesh`` (``parallel.make_mesh``) makes the agent one rank of a
+    data-parallel job, rank r in JAX device r's place: every rank draws
+    the same global batch from an identically seeded env and runs its
+    ``B / D`` rows (``_rows``) through the device passes, the host act /
+    replay rollout and the stream window; the sums that normalise or
+    report a loss are summed over the ranks, so each rank's loss is its
+    share of the single-device loss, and ``optim_step`` sums the
+    gradients with one all-reduce before the update, which then equals
+    the single-device update (GSPMD's, seq2seq.py:225-237).  The weights
+    are broadcast from rank 0 at construction and after ``load``; only
+    rank 0 saves; evaluation gathers every rank's records, so each rank
+    holds the whole split's results.  Dropout and sampling draw from a
+    stream of the rank's own; the env-drop noise is shared.  Where the
+    ranks do not divide ``batch_size`` every rank runs the whole batch,
+    the single-device math, as GSPMD replicates such arrays."""
 
     def __init__(self, cfg: Config, env: Optional[R2REnv],
                  feature_db: FeatureDB,
                  depth_db: Optional[FeatureDB] = None, vocab_size: int = 0,
-                 rng_seed: int = 0, device=None):
+                 rng_seed: int = 0, device=None,
+                 mesh: Optional[DataMesh] = None):
         self.cfg = cfg
         self.env = env
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # the mesh when it splits the batch (else every rank runs it all)
+        self._dp = (mesh if mesh is not None
+                    and mesh.divides(cfg.batch_size) else None)
         dtype = _DTYPES[cfg.compute_dtype]
         if self.device.type == "cpu":
             dtype = torch.float32
@@ -323,6 +349,8 @@ class Seq2SeqAgent(StreamMixin):
         # eval mode: dropout is explicit (a generator per pass), never
         # nn.Module.training
         self.policy = policy.to(self.device).eval()
+        if mesh is not None:
+            mesh.replicate_module(self.policy)
         self._lstm_kernel = cfg.use_pallas != "never"
         self.optimizer = ComponentOptimizer(self._scaled_lr_cfg(),
                                             self.policy)
@@ -376,6 +404,41 @@ class Seq2SeqAgent(StreamMixin):
     def tables(self):
         return (self.feat_table, self.dfeat_table, self.angle_table)
 
+    # ------------------------------------------------------------------
+    # data parallel (parallel/mesh.py)
+    # ------------------------------------------------------------------
+    def _n_shards(self) -> int:
+        return 1 if self._dp is None else self._dp.n_data
+
+    def _rows(self, n: int) -> slice:
+        """This rank's rows of a batch axis of ``n``."""
+        return slice(0, n) if self._dp is None else self._dp.rows(n)
+
+    def _allsum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self._dp is None else self._dp.allsum(x)
+
+    def _all_ended(self, ended: torch.Tensor) -> bool:
+        """Whether every row of the whole batch has ended (a host sync)."""
+        if self._dp is None:
+            return bool(ended.all())
+        return int(self._dp.allsum((~ended).sum())) == 0
+
+    def _reduce_logs(self, logs: dict) -> dict:
+        """The logged sums over the ranks, in one all-reduce."""
+        if self._dp is None or not logs:
+            return logs
+        keys = sorted(logs)
+        vec = self._dp.allsum(torch.stack([logs[k].detach().float()
+                                           for k in keys]))
+        return {k: vec[i].to(logs[k].dtype) for i, k in enumerate(keys)}
+
+    def _pass_generator(self, gen: torch.Generator) -> torch.Generator:
+        """Under data parallel, ``gen`` reseeded for this rank's dropout
+        and sampling draws, after the draws every rank shares."""
+        if self._dp is not None and self._dp.n_data > 1:
+            gen.manual_seed(rank_seed(int(gen.initial_seed()), self._dp))
+        return gen
+
     def load_jax_params(self, params) -> None:
         """Load the JAX package's param tree (nested dicts of arrays, with
         or without the top-level ``params`` key)."""
@@ -426,10 +489,12 @@ class Seq2SeqAgent(StreamMixin):
         the episode inputs and the instruction tensors."""
         env = self.env
         dev = self._device_env_tables()
-        ep = {k: self._put(v) for k, v in episode_inputs(env, dev).items()}
-        instr = self._put(env._static["instr"]).long()
-        valid = self._put(~env._static["pad_mask"])
-        seq_len = self._put(env._static["seq_len"]).long()
+        rows = self._rows(len(env.batch))
+        ep = {k: self._put(v[rows])
+              for k, v in episode_inputs(env, dev).items()}
+        instr = self._put(env._static["instr"][rows]).long()
+        valid = self._put(~env._static["pad_mask"][rows])
+        seq_len = self._put(env._static["seq_len"][rows]).long()
         return dev, ep, instr, valid, seq_len
 
     @torch.no_grad()
@@ -483,11 +548,15 @@ class Seq2SeqAgent(StreamMixin):
         return out
 
     def _device_test_batch(self) -> None:
-        """Evaluate one env minibatch on device and record results."""
+        """Evaluate one env minibatch on device and record results (under
+        data parallel every rank's records, gathered)."""
         env = self.env
         dev, ep, instr, valid, seq_len = self._batch_inputs()
-        recs = {k: v.cpu().numpy() for k, v in self._device_eval(
-            dev, ep, instr, valid, seq_len).items()}
+        recs = self._device_eval(dev, ep, instr, valid, seq_len)
+        if self._dp is not None:
+            recs = {k: self._dp.all_gather(v, dim=v.dim() - 1)
+                    for k, v in recs.items()}
+        recs = {k: v.cpu().numpy() for k, v in recs.items()}
         nodes, views = recs["node"], recs["view"]
         stops, actives = recs["stop"], recs["active"]
         T = nodes.shape[0]
@@ -649,7 +718,7 @@ class Seq2SeqAgent(StreamMixin):
                      else env_noise.to(self.device, self.dtype))
         if speaker is not None:
             speaker.relabel_batch(self.env, noise)
-        return (*self._episode_tensors(), gen, noise)
+        return (*self._episode_tensors(), self._pass_generator(gen), noise)
 
     def _teacher_trajectory(self, dev: DeviceEnvTables, ep, n_steps: int):
         """Phase A of the teacher pass (seq2seq.py:718-743): the
@@ -688,7 +757,11 @@ class Seq2SeqAgent(StreamMixin):
         discounted returns bootstrapped from ``g0``, normalized by
         ``normalize_loss``.  The auxiliary sums are logged as
         ``back_loss`` (weighted), ``pm_loss`` (weighted; agent_advanced's
-        raw) and ``kl_loss``."""
+        raw) and ``kl_loss``.  Under data parallel ``batch`` is the whole
+        batch's row count and the counts that normalise (the A2C total,
+        the KL's elements) are summed over the ranks, so the loss is this
+        rank's share of the single-device loss; the logs stay this rank's
+        (:meth:`_reduce_logs` sums them)."""
         cfg = self.cfg
         grid = {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
         ce, logp_a, ent, value = (grid[k] for k in ("ce", "logp_a", "ent",
@@ -706,8 +779,10 @@ class Seq2SeqAgent(StreamMixin):
             logs["pm_loss"] = grid["adv_pm_mse"].sum()
             ml_loss = ml_loss + 10.0 * logs["pm_loss"]
         if cfg.agent_type == "mt":
-            # rides the ml scaling (agent_mt.py:871), logged raw
-            logs["kl_loss"] = grid["kl"].sum()
+            # rides the ml scaling (agent_mt.py:871), logged raw; each
+            # step's mean over its valid elements
+            cnt = self._allsum(grid["kl_cnt"])
+            logs["kl_loss"] = (grid["kl"] / cnt.clamp(min=1.0)).sum()
             ml_loss = ml_loss + logs["kl_loss"]
         total_loss = ml_weight * ml_loss / batch
         returns, g = [], g0
@@ -721,7 +796,7 @@ class Seq2SeqAgent(StreamMixin):
                    + (-ent_weight * ent * rl_masks).sum())
         total = rl_masks.sum()
         if cfg.normalize_loss == "total":
-            rl_loss = rl_loss / total.clamp(min=1.0)
+            rl_loss = rl_loss / self._allsum(total).clamp(min=1.0)
         elif cfg.normalize_loss == "batch":
             rl_loss = rl_loss / batch
         total_loss = total_loss + rl_weight * rl_loss
@@ -732,11 +807,11 @@ class Seq2SeqAgent(StreamMixin):
         return total_loss, logs
 
     def _step_outs(self, logit, value, sobs, action, active, aux,
-                   pm_target):
+                   pm_target, real, n_rows: int):
         """One step's outs: the cross-entropy with the teacher on active
         rows, the log-probability of the taken action (STOP for any slot
         past the candidates), the entropy, the value and the auxiliary
-        terms (:func:`aux_terms`)."""
+        terms (:func:`aux_terms`, with ``real`` and ``n_rows``)."""
         masked = logit.float().masked_fill(sobs["logit_mask"], NEG_INF)
         logp = torch.log_softmax(masked, dim=-1)
         ce = -logp.gather(1, sobs["teacher"][:, None])[:, 0]
@@ -745,7 +820,8 @@ class Seq2SeqAgent(StreamMixin):
         logp_a = logp.gather(1, a_rec[:, None])[:, 0]
         outs = {"ce": ce, "logp_a": logp_a, "ent": _entropy(logp, logp.exp()),
                 "value": value.float()}
-        outs.update(aux_terms(self.cfg, aux, logp, sobs, active, pm_target))
+        outs.update(aux_terms(self.cfg, aux, logp, sobs, active, pm_target,
+                              real, n_rows))
         return outs
 
     def _replay_loss(self, instr, valid, seq_len, stacked, final_sobs,
@@ -767,6 +843,12 @@ class Seq2SeqAgent(StreamMixin):
                                   or cfg.agent_type == "advanced"):
             raise ValueError("the progress-monitor loss needs pm_target")
         n_steps, batch = rewards.shape
+        n_rows = batch * self._n_shards()
+        real = None
+        if cfg.pred_pm or cfg.agent_type == "advanced":
+            # the steps on which a row of the whole batch is active (the
+            # progress-monitor terms count no other)
+            real = (self._allsum(stacked["active"].sum(1)) > 0).float()
         rep = n_steps + 1
         streams = (gen if isinstance(gen, PassStreams)
                    else PassStreams(self.device, gen=gen))
@@ -808,7 +890,9 @@ class Seq2SeqAgent(StreamMixin):
                 deterministic=False, already_dropfeat=dropfeat,
                 gen=streams.at(t, 1))
             outs.append(self._step_outs(logit, value, sobs, sobs["action"],
-                                        sobs["active"], aux, pm_target))
+                                        sobs["active"], aux, pm_target,
+                                        None if real is None else real[t],
+                                        n_rows))
         _, _, last_value, _ = policy.decode_from_percept(
             percept_at(n_steps), valid, state, final_sobs["is_first"],
             deterministic=False, already_dropfeat=dropfeat,
@@ -816,7 +900,7 @@ class Seq2SeqAgent(StreamMixin):
         last_value = last_value.detach().float()
         g0 = torch.where(final_ended, torch.zeros_like(last_value),
                          last_value)
-        return self._finish_loss(batch, outs, rewards, rl_masks, g0,
+        return self._finish_loss(n_rows, outs, rewards, rl_masks, g0,
                                  ml_weight, rl_weight, ent_weight)
 
     def _fused_loss(self, feedback: str, dev: DeviceEnvTables, ep, instr,
@@ -839,6 +923,10 @@ class Seq2SeqAgent(StreamMixin):
         arrays = dev.arrays()
         k = cfg.max_candidates
         batch = instr.shape[0]
+        n_rows = batch * self._n_shards()
+        # every step that runs has an active row (the loop stops once all
+        # have ended), so the progress-monitor terms always count
+        real = torch.ones((), device=self.device)
         cached = policy.encode_text(instr, valid, seq_len, self._lstm_kernel,
                                     deterministic=False, gen=gen)
         goal, start = ep["goal"], ep["start"]
@@ -885,7 +973,7 @@ class Seq2SeqAgent(StreamMixin):
             else:
                 raise ValueError(feedback)
             outs = self._step_outs(logit, value, sobs, action, ~ended, aux,
-                                   pm_target)
+                                   pm_target, real, n_rows)
             outs["rl_mask"] = (~ended).float()
             node, view, ended, outs["reward"] = _env_and_reward(
                 arrays, sobs, node, view, action, ended, goal_local)
@@ -893,7 +981,7 @@ class Seq2SeqAgent(StreamMixin):
 
         outs, recs = [], []
         for t in range(cfg.max_action):
-            if bool(carry[2].all()):
+            if self._all_ended(carry[2]):
                 break
             sobs, action, out, carry = checkpointed(
                 functools.partial(step, t=t), gen, remat_step, *carry)
@@ -918,7 +1006,7 @@ class Seq2SeqAgent(StreamMixin):
                           pm_target=pm_target,
                           final_sobs=_record(sobs, ended, False,
                                              torch.zeros_like(node)))
-        loss, logs = self._finish_loss(batch, outs, rewards, masks, g0,
+        loss, logs = self._finish_loss(n_rows, outs, rewards, masks, g0,
                                        ml_weight, rl_weight, ent_weight)
         logs["env_steps"] = masks.sum().long()
         return loss, logs
@@ -959,10 +1047,11 @@ class Seq2SeqAgent(StreamMixin):
                 if record is not None:
                     record.update(instr=instr, valid=valid, seq_len=seq_len)
             loss.backward()
+        logs = self._reduce_logs(logs)
         self._env_steps_log.append(logs.pop("env_steps"))
         for key, val in logs.items():
             self.logs[key].append(val.detach())
-        self.losses.append(loss.detach())
+        self.losses.append(logs["loss"].detach())
 
     # ------------------------------------------------------------------
     # the host act/replay rollout (seq2seq.py:1661-1905)
@@ -1041,7 +1130,10 @@ class Seq2SeqAgent(StreamMixin):
         autograd adds to ``.grad``; ``defer_grad`` queues the replay for
         :meth:`flush_replays`.  ``speaker`` relabels the batch first;
         ``env_noise`` replaces the drawn env-drop noise (for tests).
-        Records every trajectory in ``results``; returns them."""
+        Records every trajectory in ``results``; returns them.  Under data
+        parallel every rank steps the same host env; each runs the policy
+        on its rows, the ranks' actions are gathered every step, and each
+        replays its rows."""
         cfg = self.cfg
         feedback = feedback or cfg.feedback
         # teacher / argmax feedback never trains RL (agent_dg.py:643-644)
@@ -1050,6 +1142,7 @@ class Seq2SeqAgent(StreamMixin):
         env = self.env
         obs = env.reset() if reset else env._get_obs()
         batch = obs.batch_size()
+        rows = self._rows(batch)
         streams = self._host_streams()
         # the reference draws the env-drop mask through an nn.Dropout: all
         # ones at evaluation (agent_dg.py:657, 677)
@@ -1059,11 +1152,14 @@ class Seq2SeqAgent(StreamMixin):
                      else env_noise.to(self.device, self.dtype))
         if speaker is not None:
             obs = speaker.relabel_batch(env, noise)
+        if self._dp is not None and self._dp.n_data > 1:
+            streams = PassStreams(self.device,
+                                  rank_seed(streams.seed, self._dp))
         # the progress monitor's target: the episode-start progress
         pm_target = obs.progress.astype(np.float32).copy()
-        instr = self._put(obs.instr).long()
-        valid = self._put(~obs.pad_mask)
-        seq_len = self._put(obs.seq_len).long()
+        instr = self._put(obs.instr[rows]).long()
+        valid = self._put(~obs.pad_mask[rows])
+        seq_len = self._put(obs.seq_len[rows]).long()
         cached = None
         if feedback != "teacher":
             with torch.no_grad():
@@ -1077,7 +1173,7 @@ class Seq2SeqAgent(StreamMixin):
         # node-index visited sets; the current node joins before masking
         # (agent_dg.py:836-841)
         visited = [set() for _ in range(batch)] if cfg.submit else None
-        zeros = torch.zeros(batch, decoder_state_width(cfg),
+        zeros = torch.zeros(instr.shape[0], decoder_state_width(cfg),
                             dtype=self.dtype, device=self.device)
         state = DecoderState(zeros, zeros, zeros)
         records, rewards, rl_masks = [], [], []
@@ -1095,8 +1191,11 @@ class Seq2SeqAgent(StreamMixin):
                 a = sobs["teacher"]
             else:
                 state, action = self._act_step(
-                    cached, valid, seq_len, state, self._put_sobs(sobs),
+                    cached, valid, seq_len, state,
+                    self._put_sobs({k: v[rows] for k, v in sobs.items()}),
                     feedback, training, noise, streams, t)
+                if self._dp is not None:
+                    action = self._dp.all_gather(action)
                 a = action.cpu().numpy()
             # STOP (slot cand_n and past) or an ended row: env action -1
             a_env = np.where((a >= obs.cand_n) | ended, -1, a)
@@ -1127,13 +1226,16 @@ class Seq2SeqAgent(StreamMixin):
                 records.append(pad)
                 rewards.append(np.zeros(batch, np.float32))
                 rl_masks.append(np.zeros(batch, np.float32))
+            # this rank's rows of the recorded episode
             replay = {
                 "instr": instr, "valid": valid, "seq_len": seq_len,
-                "stacked": {k: np.stack([r[k] for r in records])
+                "stacked": {k: np.stack([r[k][rows] for r in records])
                             for k in records[0]},
-                "final_sobs": self._to_sobs(obs, ended, None, False),
-                "rewards": np.stack(rewards), "rl_masks": np.stack(rl_masks),
-                "final_ended": ended, "pm_target": pm_target,
+                "final_sobs": {k: v[rows] for k, v in self._to_sobs(
+                    obs, ended, None, False).items()},
+                "rewards": np.stack(rewards)[:, rows],
+                "rl_masks": np.stack(rl_masks)[:, rows],
+                "final_ended": ended[rows], "pm_target": pm_target[rows],
                 "streams": streams, "noise": noise,
                 "weights": (train_ml if train_ml is not None else 0.0,
                             1.0 if train_rl else 0.0,
@@ -1163,9 +1265,10 @@ class Seq2SeqAgent(StreamMixin):
                     pm_target=(None if pm_target is None
                                else self._put(pm_target)))
                 loss.backward()
+            logs = self._reduce_logs(logs)
             for key, val in logs.items():
                 self.logs[key].append(val.detach())
-            self.losses.append(loss.detach())
+            self.losses.append(logs["loss"].detach())
 
     def flush_replays(self) -> None:
         """Run the replays ``rollout(defer_grad=True)`` queued."""
@@ -1227,11 +1330,13 @@ class Seq2SeqAgent(StreamMixin):
 
     def optim_step(self) -> None:
         """Run the queued replays, apply the accumulated gradients
-        (seq2seq.py:1981), then clear them; a no-op when nothing was
-        accumulated."""
+        (seq2seq.py:1981; under data parallel summed over the ranks
+        first), then clear them; a no-op when nothing was accumulated."""
         self.flush_replays()
         if all(p.grad is None for p in self.policy.parameters()):
             return
+        if self._dp is not None:
+            self._dp.all_reduce_grads(self.policy.parameters())
         self.optimizer.step()
         self.policy.zero_grad(set_to_none=True)
 
@@ -1264,7 +1369,11 @@ class Seq2SeqAgent(StreamMixin):
         """Per-component checkpoint in the reference's format
         (agent_dg.py:1466-1487): {component: {"epoch", "state_dict",
         "optimizer"}} under the r2r_src parameter names, plus the
-        schedule's iteration."""
+        schedule's iteration.  Rank 0 writes (seq2seq.py:2184); under data
+        parallel every rank waits for the file."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            self.mesh.barrier()
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         opts = self.optimizer.optimizers
         blob = {name: {"epoch": epoch, "state_dict": module.state_dict(),
@@ -1273,6 +1382,8 @@ class Seq2SeqAgent(StreamMixin):
                        "iteration": self.optimizer.iteration}
                 for name, module in self.policy.named_children()}
         torch.save(blob, path)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def load(self, path: str) -> int:
         """Mismatch-tolerant load (seq2seq.py:2209, agent_dg.py:1489-1510):
@@ -1285,7 +1396,8 @@ class Seq2SeqAgent(StreamMixin):
         bytes.  With ``load_optim`` the optimizer states come back too: a
         torch file's as saved, a JAX file's optax state through
         :meth:`ComponentOptimizer.restore_optax` (a NOTICE says when
-        there is none, or it does not fit).  Returns the checkpoint's
+        there is none, or it does not fit).  Under data parallel the
+        weights are then broadcast from rank 0.  Returns the checkpoint's
         epoch."""
         fmt = flax_msgpack.file_format(path)
         if fmt == "torch":
@@ -1337,4 +1449,6 @@ class Seq2SeqAgent(StreamMixin):
             except (KeyError, ValueError) as e:  # component drift: fresh
                 print(f"NOTICE: optimizer state not restored ({e})",
                       flush=True)
+        if self.mesh is not None:
+            self.mesh.replicate_module(self.policy)
         return int(epoch)

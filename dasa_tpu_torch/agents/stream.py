@@ -25,11 +25,23 @@ there, tests/test_torch_stream.py holds the port to the JAX package):
   non-blocking copy to pinned memory behind a CUDA event), so the
   training loop never waits on the card inside a window.
 
-Only one device (``D = 1``): data parallel is its own slice.  selfTrain
-under stream does not stream: its relabelled passes fall back to the host
-act/replay pair (``Seq2SeqAgent.accumulate_gradient``), as in the JAX
-agent.  Not ported (ROADMAP.md): the mesh window (``_stream_shard_map``)
-and ``precompile_stream`` (JAX AOT; eager torch compiles nothing).
+Data parallel (an agent with a ``mesh`` of D ranks) is the JAX mesh
+window (``_stream_shard_map``, stream.py:698-759): rank d runs the window
+over its own B / D slots a half and its own pool shard (the device-major
+layout: global slot ``d * W + j`` is rank d's slot j), the sums that
+normalise or report the loss are summed over the ranks where JAX
+``psum``s (stream.py:264-268), the gradients ride the agent's one
+all-reduce in ``optim_step``, and each rank draws its window's noise from
+a stream of its own, where JAX folds the device index into the window's
+key (stream.py:275-281).  Every rank keeps the same host queue: each
+stages the same FIFO, takes its own segment of every fresh chunk (JAX's
+``P(None, d)`` shard) and reads every rank's counters, all-gathered on
+the device and fetched one window late as on one device, so all ranks
+re-queue alike.  The streamed ``test()`` gathers the records of every
+rank.  selfTrain under stream does not stream: its relabelled passes
+fall back to the host act/replay pair
+(``Seq2SeqAgent.accumulate_gradient``), as in the JAX agent.  Not ported:
+``precompile_stream`` (JAX AOT; eager torch compiles nothing).
 ``stream_unroll`` is a ``lax.scan`` codegen knob with no effect here.
 ``remat`` recomputes the per-step percept (``percept``) or the whole
 step (``always`` and ``dots``, ``auto`` past 16 steps) in the backward,
@@ -88,18 +100,24 @@ def stream_returns(rewards, values, done, trunc, real, g_init,
 
 class StreamGeom:
     """Geometry of a stream window: B slots per half (W = 2B), S steps,
-    E pool rows per half."""
+    E pool rows per half, each PER RANK of a data-parallel job of D ranks
+    (1 without one), whose global widths are D times theirs."""
 
-    def __init__(self, batch: int, steps: int, pool: int):
+    def __init__(self, batch: int, steps: int, pool: int, n_data: int = 1):
         self.B = batch
         self.W = 2 * batch
         self.S = steps
         self.E = pool
+        self.D = n_data
+
+    @property
+    def W_glob(self) -> int:
+        return self.D * self.W
 
 
 class _StreamHost:
     """Host state of one env's stream: the device carry, the episode FIFO
-    and the lagged flow-control ledger (counters per half)."""
+    and the lagged flow-control ledger (counters (D, 2): rank x half)."""
 
     def __init__(self, geom: StreamGeom, carry: dict, template: dict,
                  consumed_est: float):
@@ -107,10 +125,10 @@ class _StreamHost:
         self.carry = carry
         self.template = template
         self.fifo: deque = deque()
-        # (sent[h] item lists, flow counters in flight)
+        # (sent[h][d] item lists, flow counters in flight)
         self.inflight: deque = deque()
-        self.leftover_settled = np.zeros(2, np.int64)
-        self.consumed_est = np.full(2, consumed_est)
+        self.leftover_settled = np.zeros((geom.D, 2), np.int64)
+        self.consumed_est = np.full((geom.D, 2), consumed_est)
         self.next_uid = 0
         self.staged: Dict[int, dict] = {}  # uid -> episode row
         self.records: List[dict] = []      # per-window records (record=True)
@@ -118,18 +136,23 @@ class _StreamHost:
     def inventory_est(self) -> np.ndarray:
         inv = self.leftover_settled.astype(np.float64)
         for sent, _flow in self.inflight:
-            inv += np.array([len(sent[0]), len(sent[1])],
+            inv += np.array([[len(sent[h][d]) for h in (0, 1)]
+                             for d in range(self.geom.D)],
                             np.float64) - self.consumed_est
         return np.maximum(inv, 0.0)
 
 
 class _Flow:
-    """A window's flow counters on their way to the host: a non-blocking
-    copy into pinned memory and the CUDA event that completes it (on the
-    CPU a plain copy)."""
+    """A window's flow counters on their way to the host, every rank's
+    (all-gathered on the device under data parallel): a non-blocking copy
+    into pinned memory and the CUDA event that completes it (on the CPU a
+    plain copy)."""
 
-    def __init__(self, logs: dict):
-        counters = torch.stack([logs[k] for k in FLOW_KEYS])   # (3, 2)
+    def __init__(self, logs: dict, mesh=None):
+        counters = torch.stack([logs[k] for k in FLOW_KEYS])[None]
+        if mesh is not None:
+            counters = mesh.all_gather(counters)           # (D, 3, 2)
+        counters = counters.transpose(0, 1).contiguous()   # (3, D, 2)
         if counters.is_cuda:
             self.host = torch.empty(counters.shape, dtype=counters.dtype,
                                     pin_memory=True)
@@ -164,18 +187,22 @@ class StreamMixin:
     # gating and geometry
     # ------------------------------------------------------------------
     def use_stream_rollout(self) -> bool:
+        """Streaming needs the device rollout path; under a mesh the ranks
+        must split the batch into slot shards."""
         return (self.cfg.rollout_mode == "stream"
-                and self.use_device_rollout())
+                and self.use_device_rollout()
+                and (self.mesh is None or self._dp is not None))
 
     def _stream_geom(self) -> StreamGeom:
         cfg = self.cfg
+        D = self._n_shards()
         S = cfg.stream_steps or cfg.max_action
-        B = cfg.batch_size
+        B = cfg.batch_size // D
         if cfg.stream_pool:
-            E = cfg.stream_pool
+            E = -(-cfg.stream_pool // D)
         else:
             E = int(np.ceil(1.3 * B * S / max(self._stream_mean_len(), 2.0)))
-        return StreamGeom(B, S, max(E, 2))
+        return StreamGeom(B, S, max(E, 2), D)
 
     def _stream_mean_len(self) -> float:
         """Steady-state episode length estimate: the dataset's mean path
@@ -197,7 +224,10 @@ class StreamMixin:
         touch, run S steps with per-step refill, bootstrap the edge, and
         the losses over the slot-time grid.  Returns (loss, logs,
         new_carry); the loss is None in ``eval_mode`` (inference: no
-        dropout, no noise, the policy's action in every slot)."""
+        dropout, no noise, the policy's action in every slot).  Under data
+        parallel ``geom`` is this rank's shard: its counters and records
+        are its own, the loss's denominators and its logs are summed over
+        the ranks."""
         from dasa_tpu_torch.agents.seq2seq import (
             _entropy,
             back_ce,
@@ -383,13 +413,21 @@ class StreamMixin:
         slot_ep, alive, age, node, view, state, noise, cur = step_carry
         grid = {key: torch.stack(val) for key, val in outs.items()}
 
-        logs = {"env_steps": grid["env_steps"].sum(),
-                "admitted": adm, "consumed": cur, "leftover": avail - cur,
-                "starved": grid["starved"].sum()}
         n_eps = torch.stack([(carry["alive"] & ml_rows).sum(),
                              (carry["alive"] & is_sample).sum()]) \
             + grid["refills"].sum(0)
-        logs["n_eps"] = n_eps
+        mlm = (grid["real"] & ml_rows).float()
+        rlm = (grid["real"] & is_sample).float()
+        # the window's counts over every rank's slots, in one all-reduce
+        counts = [n_eps[0], n_eps[1], grid["env_steps"].sum(),
+                  grid["starved"].sum()]
+        if not eval_mode:
+            counts.append(rlm.sum())
+        counts = self._allsum(torch.stack([c.float() for c in counts]))
+        n_eps = counts[:2].long()
+        logs = {"env_steps": counts[2].long(),
+                "admitted": adm, "consumed": cur, "leftover": avail - cur,
+                "starved": counts[3].long(), "n_eps": n_eps}
         if record:
             logs.update({key: val for key, val in grid.items()
                          if key.startswith("rec_")})
@@ -414,8 +452,6 @@ class StreamMixin:
             alive = alive & (age < T)
 
             n_ml = n_eps[0].float().clamp(min=1.0)
-            mlm = (grid["real"] & ml_rows).float()
-            rlm = (grid["real"] & is_sample).float()
             forth_loss = (grid["ce"] * mlm).sum()
             ml_loss = forth_loss
             if cfg.pred_back:
@@ -444,7 +480,7 @@ class StreamMixin:
             critic = (0.5 * (G - grid["value"]) ** 2 * rlm).sum()
             rl_loss = ((-grid["logp_a"] * adv * rlm).sum() + critic
                        + (-ent_w * grid["ent"] * rlm).sum())
-            total = rlm.sum()
+            total = counts[4]
             if cfg.normalize_loss == "total":
                 rl_loss = rl_loss / total.clamp(min=1.0)
                 critic = critic / total.clamp(min=1.0)
@@ -453,10 +489,14 @@ class StreamMixin:
                 rl_loss = rl_loss / nb
                 critic = critic / nb
             loss = loss + rl_w * rl_loss
-            logs.update(forth_loss=forth_loss,
-                        entropy=(grid["ent"] * rlm).sum(),
-                        ml_loss=ml_loss / n_ml, rl_loss=rl_w * rl_loss,
-                        critic_loss=rl_w * critic, total=total, loss=loss)
+            losses = {key: logs.pop(key) for key in ("back_loss", "pm_loss",
+                                                     "kl_loss")
+                      if key in logs}
+            losses.update(forth_loss=forth_loss,
+                          entropy=(grid["ent"] * rlm).sum(),
+                          ml_loss=ml_loss / n_ml, rl_loss=rl_w * rl_loss,
+                          critic_loss=rl_w * critic, loss=loss)
+            logs.update(self._reduce_logs(losses), total=total)
 
         # ---- the next window's carry, detached (truncated BPTT)
         def leftover_rows(h):
@@ -568,35 +608,39 @@ class StreamMixin:
         self.stream_timer.tic("settle_sync")
         counts = flow.read()
         self.stream_timer.toc("settle_sync")
-        adm = counts["admitted"]
-        for h in (1, 0):  # the exact reverse of the staging order
-            for it in reversed(sent[h][int(adm[h]):]):
-                st.fifo.appendleft(it)
+        adm = counts["admitted"]                               # (D, 2)
+        # the exact reverse of the staging order (half-major, then rank)
+        for h in (1, 0):
+            for d in reversed(range(st.geom.D)):
+                for it in reversed(sent[h][d][int(adm[d, h]):]):
+                    st.fifo.appendleft(it)
         st.leftover_settled = counts["leftover"].astype(np.int64)
         st.consumed_est = np.maximum(counts["consumed"].astype(np.float64),
                                      1.0)
 
     def _stage_stream_fresh(self, st: _StreamHost):
-        """This window's fixed-shape fresh chunks, one per half, aimed at
-        full pools under the lagged inventory estimate; one packed
+        """This window's fixed-shape fresh chunks, one segment per rank
+        and half, aimed at full pools under the lagged inventory
+        estimate; this rank's segments go over in one packed
         host-to-device copy."""
-        E = st.geom.E
+        E, D = st.geom.E, st.geom.D
+        rank = 0 if self._dp is None else self._dp.rank
         while len(st.inflight) >= 2:  # settle all but the running window
             self._settle_stream_window(st)
         f_n = np.clip(E - st.inventory_est(), 0, E).astype(np.int64)
         self._stream_refill_fifo(st, int(f_n.sum()))
-        sent = [[st.fifo.popleft() for _ in range(int(f_n[h]))]
-                for h in (0, 1)]
+        sent = [[[st.fifo.popleft() for _ in range(int(f_n[d, h]))]
+                 for d in range(D)] for h in (0, 1)]
 
         self.stream_timer.tic("stage_arrays")
         L = self.cfg.max_input
         packed = np.empty((2, E, 2 * L + len(_SCALARS)) , np.int64)
         packed[:] = _pack_row(st.template)
         for h in (0, 1):
-            for i, it in enumerate(sent[h]):
+            for i, it in enumerate(sent[h][rank]):
                 packed[h, i] = _pack_row(it)
         host = torch.from_numpy(np.concatenate(
-            [packed.reshape(-1), f_n]))
+            [packed.reshape(-1), f_n[rank]]))
         if self.device.type == "cuda":
             host = host.pin_memory()
         flat = host.to(self.device, non_blocking=True)
@@ -622,7 +666,7 @@ class StreamMixin:
         cfg = self.cfg
         st = self._stream_host()
         fresh, f_n, sent = self._stage_stream_fresh(st)
-        gen = self._rollout_generator()
+        gen = self._pass_generator(self._rollout_generator())
         self.stream_timer.tic("dispatch")
         with self._cast_params_once():
             loss, logs, st.carry = self._stream_window(
@@ -632,7 +676,7 @@ class StreamMixin:
             loss.backward()
         self.stream_timer.toc("dispatch")
         self.stream_timer.step()
-        st.inflight.append((sent, _Flow(logs)))
+        st.inflight.append((sent, _Flow(logs, self._dp)))
         if record:  # kept on the device: no sync
             st.records.append({key: val for key, val in logs.items()
                                if key.startswith("rec_")})
@@ -645,7 +689,7 @@ class StreamMixin:
                     "kl_loss"):
             if key in logs:
                 self.logs[key].append(logs[key].detach())
-        self.losses.append(loss.detach())
+        self.losses.append(logs["loss"].detach())
 
     # ------------------------------------------------------------------
     # streamed evaluation
@@ -654,8 +698,9 @@ class StreamMixin:
     def stream_test_loop(self) -> None:
         """Streamed evaluation (``stream_test_loop``, stream.py:1007): the
         whole split flows through the slots in eval mode; fills
-        ``self.results`` as ``_device_test_batch`` does.  Fresh host state
-        per call: evaluation must not touch the training carries."""
+        ``self.results`` as ``_device_test_batch`` does (under data
+        parallel from every rank's records).  Fresh host state per call:
+        evaluation must not touch the training carries."""
         cfg, env = self.cfg, self.env
         T = cfg.max_action
         dev = self._device_env_tables()
@@ -725,26 +770,34 @@ class StreamMixin:
                     close(seg, rec["rec_node_end"][w],
                           rec["rec_view_end"][w])
 
+        def records(logs):
+            """The window's records over every rank's slots (the slot axis
+            is the last one), still on the device."""
+            recs = {key: val for key, val in logs.items()
+                    if key.startswith("rec_")}
+            if self._dp is not None:
+                recs = {key: self._dp.all_gather(val, dim=val.dim() - 1)
+                        for key, val in recs.items()}
+            return recs
+
         size = env.size()
-        max_windows = 4 + 3 * -(-size * T // max(geom.W * geom.S, 1))
+        max_windows = 4 + 3 * -(-size * T // max(geom.W_glob * geom.S, 1))
         pending = None
         for _ in range(max_windows):
             fresh, f_n, sent = self._stage_stream_fresh(st)
             _, logs, st.carry = self._stream_window(
                 "argmax", False, geom, st.carry, fresh, f_n, None, 0.0, 0.0,
                 0.0, record=True, eval_mode=True)
-            st.inflight.append((sent, _Flow(logs)))
+            st.inflight.append((sent, _Flow(logs, self._dp)))
             if pending is not None:  # lagged fetch: no sync per window
                 process({key: val.cpu().numpy()
-                         for key, val in pending.items()
-                         if key.startswith("rec_")})
+                         for key, val in pending.items()})
                 if len(self.results) >= size:
                     pending = None
                     break
-            pending = logs
+            pending = records(logs)
         if pending is not None:
-            process({key: val.cpu().numpy() for key, val in pending.items()
-                     if key.startswith("rec_")})
+            process({key: val.cpu().numpy() for key, val in pending.items()})
 
 
 def _pack_row(row: dict) -> np.ndarray:

@@ -7,9 +7,20 @@ whose feature content is gathered on device.  Candidate geometry per
 (scan, viewpoint) is cached once — the reference proves this is sound
 with its buffered_state_dict (env.py:291-297).
 
-Episodes are driven by :class:`dasa_tpu_torch.sim.engine.BatchSim`
-(numpy).  The JAX package's native C++ backend is not carried over, so
-``backend`` accepts only ``auto`` and ``python``.
+Two interchangeable backends drive the episodes, chosen as the JAX
+package's env chooses (``dasa_tpu/env/r2r_env.py:70-95``):
+
+- ``python``: :class:`dasa_tpu_torch.sim.engine.BatchSim` (numpy).
+- ``native``: the C++ engine (``dasa_tpu_torch/sim/native/dasasim.cpp``,
+  built at first use by ``sim/csim.py``) — graph loading, Dijkstra,
+  candidate precompute, and the entire batched observation fill happen
+  in one C call per step, replacing the reference's serial per-sim
+  Python stepping (env.py:72-120).
+
+``backend="auto"`` (the default) takes the native engine when it builds
+and prints the reason when it falls back to python, where the JAX env
+falls back quietly; ``backend="native"`` raises when the engine cannot
+be built or loaded.  :attr:`R2REnv.backend` says which one runs.
 """
 
 from __future__ import annotations
@@ -63,13 +74,38 @@ class R2REnv:
             g = load_scan_graph(scan, connectivity_dir)
             self.graphs[scan] = g
 
-        if backend not in ("auto", "python"):
-            raise NotImplementedError(
-                f"sim backend {backend!r}: only the python engine is ported "
-                "(ROADMAP.md, native sim engine)")
-        for g in self.graphs.values():
-            g.compute_shortest_paths()
-        self.sim = BatchSim(batch_size, connectivity_dir, seed=seed)
+        # backend selection
+        self.native = None
+        self._scan_handle: Dict[str, int] = {}
+        if backend not in ("auto", "native", "python"):
+            raise ValueError(f"sim backend {backend!r}")
+        if backend in ("auto", "native"):
+            try:
+                from dasa_tpu_torch.sim.csim import NativeEngine
+
+                self.native = NativeEngine(k_max=max_candidates)
+                for scan in self.scans:
+                    h = self.native.load_scan(scan, connectivity_dir)
+                    self._scan_handle[scan] = h
+                    g = self.graphs[scan]
+                    rows = np.zeros(g.num_nodes, np.int32)
+                    for i in np.nonzero(g.included)[0]:
+                        key = f"{scan}_{g.ids[int(i)]}"
+                        rows[i] = feature_db.id2row.get(key, 0)
+                    self.native.set_feat_rows(h, rows)
+            except (OSError, RuntimeError) as e:
+                if backend == "native":
+                    raise
+                print(f"R2REnv {self.name}: the native sim engine is "
+                      f"unavailable ({str(e).splitlines()[0]}); running the "
+                      "python engine", flush=True)
+                self.native = None
+        if self.native is None:
+            for g in self.graphs.values():
+                g.compute_shortest_paths()
+            self.sim = BatchSim(batch_size, connectivity_dir, seed=seed)
+        else:
+            self.sim = None
 
         self._rng = random.Random(seed)
         self._rng.shuffle(self.data)
@@ -84,7 +120,7 @@ class R2REnv:
 
     @property
     def backend(self) -> str:
-        return "python"
+        return "native" if self.native is not None else "python"
 
     def size(self) -> int:
         return len(self.data)
@@ -145,11 +181,20 @@ class R2REnv:
         self._goal_ix[:b] = goal_ix
         self._start_ix[:b] = path0_ix
 
-        self.sim.new_episodes(scans, starts, headings)
-        for i, item in enumerate(self.batch):
-            g = self.graphs[item["scan"]]
-            self._total_dist[i] = g.dist[path0_ix[i], goal_ix[i]]
-
+        if self.native is not None:
+            scan_h = np.array([self._scan_handle[s] for s in scans],
+                              np.int32)
+            self.native.reset(scan_h, start_ix.astype(np.int32),
+                              path0_ix.astype(np.int32),
+                              goal_ix.astype(np.int32), headings)
+            for i in range(b):
+                self._total_dist[i] = self.native.distance(
+                    int(scan_h[i]), int(path0_ix[i]), int(goal_ix[i]))
+        else:
+            self.sim.new_episodes(scans, starts, headings)
+            for i, item in enumerate(self.batch):
+                g = self.graphs[item["scan"]]
+                self._total_dist[i] = g.dist[path0_ix[i], goal_ix[i]]
 
         # episode-static language fields
         L = self.max_input
@@ -168,6 +213,26 @@ class R2REnv:
     def step(self, actions: Sequence[int],
              trajs: Optional[List[list]] = None) -> Obs:
         """actions: candidate index per episode; -1 or >= cand_n = STOP."""
+        if self.native is not None:
+            obs = self._last_obs
+            acts = np.asarray(actions, np.int32)
+            acts = np.where(acts >= obs.cand_n, -1, acts)
+            if trajs is not None:
+                scan_h, node, view, _ = self.native.get_state()
+                for i, a in enumerate(acts):
+                    if a < 0:
+                        continue
+                    scan = self.batch[i]["scan"]
+                    g = self.graphs[scan]
+                    trg = int(obs.cand_point_id[i, a])
+                    micro_trajectory(g.ids[int(node[i])], int(view[i]),
+                                     trg, trajs[i])
+                    trajs[i].append((
+                        g.ids[int(obs.cand_nbr_ix[i, a])],
+                        (trg % 12) * (np.pi / 6),
+                        (trg // 12 - 1) * (np.pi / 6)))
+            self.native.step(acts)
+            return self._get_obs()
         for i, a in enumerate(actions):
             a = int(a)
             st = self.sim.states[i]
@@ -183,15 +248,27 @@ class R2REnv:
         agent_dg.py:1135-1140).  Returns refreshed obs."""
         scan = self.batch[i]["scan"]
         node = self.graphs[scan].id2ix[viewpoint]
-        st = self.sim.states[i]
-        st.ix = node
-        st.view_index = int(view_index)
+        if self.native is not None:
+            self.native.teleport(i, node, int(view_index))
+        else:
+            st = self.sim.states[i]
+            st.ix = node
+            st.view_index = int(view_index)
         return self._get_obs()
 
     # -- state access for the agent/evaluator --
     def state_tuples(self) -> List[Tuple[str, float, float]]:
         """(viewpointId, heading, elevation) per episode — the trajectory
         entry format of the submission JSON (eval.py:17)."""
+        if self.native is not None:
+            _, node, view, _ = self.native.get_state()
+            out = []
+            for i in range(len(self.batch)):
+                g = self.graphs[self.batch[i]["scan"]]
+                out.append((g.ids[int(node[i])],
+                            (int(view[i]) % 12) * (np.pi / 6),
+                            (int(view[i]) // 12 - 1) * (np.pi / 6)))
+            return out
         return [(st.graph.ids[st.ix], st.heading, st.elevation)
                 for st in self.sim.states]
 
@@ -199,6 +276,9 @@ class R2REnv:
         return [t[0] for t in self.state_tuples()]
 
     def current_nodes(self) -> np.ndarray:
+        if self.native is not None:
+            _, node, _, _ = self.native.get_state()
+            return node
         return np.array([st.ix for st in self.sim.states[:len(self.batch)]])
 
     def instr_ids(self) -> List[str]:
@@ -222,7 +302,10 @@ class R2REnv:
     def _get_obs(self) -> Obs:
         b = len(self.batch)
         k = self.max_candidates
-        dyn = self._python_fill_obs(b, k)
+        if self.native is not None:
+            dyn = self.native.fill_obs(k)
+        else:
+            dyn = self._python_fill_obs(b, k)
         slots = np.arange(k)[None, :]
         cand_mask = slots <= dyn["cand_n"][:, None]
         obs = Obs(

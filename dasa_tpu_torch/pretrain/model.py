@@ -29,13 +29,23 @@ from dasa_tpu_torch.models.bert import BertConfig, DicModel, LayerNorm
 from dasa_tpu_torch.models.layers import Dense, cast_param
 
 
-def _masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _masked_ce(logits: torch.Tensor, labels: torch.Tensor,
+               count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean cross entropy over the positions whose label is >= 0 (the
-    ignore index is -1; at least one position counted)."""
+    ignore index is -1; at least one position counted).  ``count``, when
+    given, is the number of such positions to divide by (a data-parallel
+    rank passes the whole batch's)."""
     logp = torch.log_softmax(logits, dim=-1)
     ce = -logp.gather(-1, labels.long().clamp(min=0)[..., None])[..., 0]
     w = (labels >= 0).float()
-    return (ce * w).sum() / w.sum().clamp(min=1.0)
+    if count is None:
+        count = w.sum()
+    return (ce * w).sum() / count.clamp(min=1.0)
+
+
+def _mean(x: torch.Tensor, norm: Optional[dict]) -> torch.Tensor:
+    """The mean over the batch's rows (all ranks' under ``norm``)."""
+    return x.mean() if norm is None else x.sum() / norm["rows"]
 
 
 class _Transform(nn.Module):
@@ -103,14 +113,16 @@ class _PreTrainBase(nn.Module):
         return ctx, pooled
 
     def _mlm_and_action(self, seq, labels, actions, img_feats, lang_mask,
-                        gen):
+                        gen, norm):
         ctx, pooled = self._encode(seq, lang_mask, img_feats, gen)
         mlm_logits = self.mlmhead(
             ctx, self.bert.embeddings.word_embeddings.weight)
         action_logits = self.next_action(pooled).float()
-        loss = _masked_ce(mlm_logits, labels)
+        norm = norm or {}
+        loss = _masked_ce(mlm_logits, labels, norm.get("mlm"))
         if actions is not None:
-            loss = loss + _masked_ce(action_logits, actions)
+            loss = loss + _masked_ce(action_logits, actions,
+                                     norm.get("action"))
         return loss, mlm_logits, action_logits, pooled
 
 
@@ -123,20 +135,24 @@ class DicAddActionPreTrain(_PreTrainBase):
 
     def forward(self, seq, labels, actions=None, img_feats=None,
                 lang_mask=None, isnext=None, next_img=None,
-                gen: Optional[torch.Generator] = None):
+                gen: Optional[torch.Generator] = None,
+                norm: Optional[dict] = None):
         """seq (B, L) masked tokens; labels (B, L) original ids at masked
         positions, -1 elsewhere; actions (B,) or None; img_feats
         (B, 36, F).  Returns (loss, mlm_logits, action_logits), and the
-        isnext logits last when ``isnext`` is given."""
+        isnext logits last when ``isnext`` is given.  ``norm`` holds the
+        whole batch's counts (``mlm``, ``action`` positions, ``rows``)
+        when these rows are one rank's share: the loss is then its part of
+        the batch's."""
         loss, mlm_logits, action_logits, _ = self._mlm_and_action(
-            seq, labels, actions, img_feats, lang_mask, gen)
+            seq, labels, actions, img_feats, lang_mask, gen, norm)
         if isnext is None:
             return loss, mlm_logits, action_logits
         _, pooled_n = self._encode(seq, lang_mask, next_img, gen)
         n_logits = self.next_action(pooled_n).float()
         n_ce = -torch.log_softmax(n_logits, -1).gather(
             -1, isnext.long()[:, None])[:, 0]
-        return loss + n_ce.mean(), mlm_logits, action_logits, n_logits
+        return loss + _mean(n_ce, norm), mlm_logits, action_logits, n_logits
 
 
 class DicPMActionPreTrain(_PreTrainBase):
@@ -149,11 +165,13 @@ class DicPMActionPreTrain(_PreTrainBase):
 
     def forward(self, seq, labels, actions=None, progress=None,
                 img_feats=None, lang_mask=None,
-                gen: Optional[torch.Generator] = None):
-        """Returns (loss, mlm_logits, action_logits, progress (B,))."""
+                gen: Optional[torch.Generator] = None,
+                norm: Optional[dict] = None):
+        """Returns (loss, mlm_logits, action_logits, progress (B,));
+        ``norm`` as in :class:`DicAddActionPreTrain`."""
         loss, mlm_logits, action_logits, pooled = self._mlm_and_action(
-            seq, labels, actions, img_feats, lang_mask, gen)
+            seq, labels, actions, img_feats, lang_mask, gen, norm)
         pm = torch.sigmoid(self.pm_head(pooled)[:, 0]).float()
         if progress is not None:
-            loss = loss + ((pm - progress) ** 2).mean()
+            loss = loss + _mean((pm - progress) ** 2, norm)
         return loss, mlm_logits, action_logits, pm

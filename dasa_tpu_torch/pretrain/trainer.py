@@ -2,8 +2,12 @@
 
 Counterpart of ``dasa_tpu/pretrain/trainer.py`` (reference
 tasks/R2R/nav_dic_pretrain.py: AdamW + WarmupLinearSchedule at 210-224,
-checkpoints at 366-382) on one device; data-parallel pretraining comes
-with the data-parallel slice (ROADMAP.md).  The model is
+DDP at 250-256, checkpoints at 366-382).  Data parallel as the JAX
+Pretrainer's mesh (trainer.py:158-173, 236-260): with a ``mesh`` of D
+ranks each rank takes its B / D rows of every batch (``shard_inputs``),
+divides its loss by the whole batch's counts and sums the gradients with
+one all-reduce before the clip, so the update is the single-device one;
+the weights are broadcast from rank 0 and only rank 0 saves.  The model is
 ``DicAddActionPreTrain`` with ``update_lang_bert`` and
 ``update_add_layer`` forced on (the whole model trains, as the
 reference's pretrain config has it), its MLM head sized to the word
@@ -31,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -40,6 +44,7 @@ from torch import nn
 from dasa_tpu_torch.config import Config
 from dasa_tpu_torch.models.featurize import assemble_pano
 from dasa_tpu_torch.models.policy import bert_config_from
+from dasa_tpu_torch.parallel import DataMesh, rank_seed
 from dasa_tpu_torch.pretrain.data import (
     PretrainBatcher,
     generate_pretrain_records,
@@ -131,15 +136,17 @@ def build_adamw(cfg: Config, model: nn.Module,
 
 
 class Pretrainer:
-    """The MLM + next-action (+ isnext) objective on one device: CUDA
-    unless ``device`` names another (the tests pass ``"cpu"``).  Compute
-    runs in ``cfg.compute_dtype`` on the card and in f32 on the CPU;
-    parameters are f32, made from ``cfg.seed``."""
+    """The MLM + next-action (+ isnext) objective: CUDA unless ``device``
+    names another (the tests pass ``"cpu"``), on this rank's rows of a
+    ``mesh`` when one is given.  Compute runs in ``cfg.compute_dtype`` on
+    the card and in f32 on the CPU; parameters are f32, made from
+    ``cfg.seed``."""
 
     def __init__(self, cfg: Config, feature_db, vocab_size: int,
-                 device=None):
+                 device=None, mesh: Optional[DataMesh] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         dtype = (torch.float32 if self.device.type == "cpu"
                  else _DTYPES[cfg.compute_dtype])
         # pretraining trains the WHOLE model: the reference forces
@@ -153,6 +160,8 @@ class Pretrainer:
             model = DicAddActionPreTrain(self.bert_config, dtype)
         # dropout is explicit (the generator), never nn.Module.training
         self.model = model.to(self.device).eval()
+        if mesh is not None:
+            mesh.replicate_module(self.model)
         self.optimizer = build_adamw(cfg, self.model, cfg.iters)
 
         def table(values):
@@ -166,13 +175,27 @@ class Pretrainer:
         # when its loss reaches the host)
         self.history: List[dict] = []
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(cfg.seed + 3)
+        # a rank's own dropout stream where the ranks split the batch;
+        # where they replicate it, every rank draws one device's masks
+        self._gen.manual_seed(rank_seed(
+            cfg.seed + 3, mesh if mesh is not None
+            and mesh.divides(cfg.batch_size) else None))
+
+    def shard_inputs(self, batch: dict) -> dict:
+        """This rank's rows of a host batch (all of it without a mesh, or
+        when the ranks do not divide the batch)."""
+        return batch if self.mesh is None else self.mesh.shard_batch(batch)
+
+    def _sharded(self, batch: dict) -> bool:
+        n = len(batch["seq"])
+        return self.mesh is not None and self.mesh.divides(n)
 
     def _tensors(self, batch: dict) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device)
                 for k, v in batch.items()}
 
-    def _forward(self, t: Dict[str, torch.Tensor], gen, isnext: bool):
+    def _forward(self, t: Dict[str, torch.Tensor], gen, isnext: bool,
+                 norm: Optional[dict] = None):
         img = assemble_pano(self.feat_table, self.angle_table,
                             t["feat_row"], t["view_index"])
         kw = {}
@@ -182,7 +205,7 @@ class Pretrainer:
                                            t["next_feat_row"], t["next_view"])
             kw["isnext"] = t["isnext"]
         return self.model(t["seq"], t["labels"], t["action"], img,
-                          t["lang_mask"], gen=gen, **kw)
+                          t["lang_mask"], gen=gen, norm=norm, **kw)
 
     @staticmethod
     def _accuracies(t, mlm_logits, action_logits) -> Dict[str, torch.Tensor]:
@@ -195,21 +218,43 @@ class Pretrainer:
 
     def train_step(self, batch: dict):
         """One optimizer step with dropout on; returns (loss, {mlm_acc,
-        act_acc[, isnext_acc]}) as floats."""
+        act_acc[, isnext_acc]}) as floats, of the whole batch under data
+        parallel."""
         start = time.perf_counter()
         isnext = self.cfg.pretrain_isnext
-        t = self._tensors(batch)
+        mesh = self.mesh if self._sharded(batch) else None
+        t = self._tensors(self.shard_inputs(batch) if mesh else batch)
+        norm = None
+        if mesh is not None:
+            counts = mesh.allsum(torch.stack([
+                (t["labels"] >= 0).sum(), (t["action"] >= 0).sum()]).float())
+            norm = {"mlm": counts[0], "action": counts[1],
+                    "rows": float(len(batch["seq"]))}
         self.optimizer.zero_grad()
-        out = self._forward(t, self._gen, isnext)
+        out = self._forward(t, self._gen, isnext, norm)
         out[0].backward()
+        if mesh is not None:
+            mesh.all_reduce_grads(self.optimizer.params)
         self.optimizer.step()
         with torch.no_grad():
-            aux = self._accuracies(t, out[1], out[2])
+            labels = t["labels"].long()
+            m = labels >= 0
+            sums = [out[0].detach().float(),
+                    ((out[1].argmax(-1) == labels) & m).sum().float(),
+                    m.sum().float(),
+                    (out[2].argmax(-1) == t["action"].long()).sum().float()]
             if isnext:
-                aux["isnext_acc"] = (out[3].argmax(-1) == t["isnext"].long()
-                                     ).float().mean()
-            vals = torch.stack([out[0].detach().float(),
-                                *(v.float() for v in aux.values())]).tolist()
+                sums.append((out[3].argmax(-1) == t["isnext"].long()
+                             ).sum().float())
+            sums = torch.stack(sums)
+            if mesh is not None:
+                sums = mesh.allsum(sums)
+            rows = float(len(batch["seq"]) if mesh else labels.shape[0])
+            aux = {"mlm_acc": sums[1] / sums[2].clamp(min=1),
+                   "act_acc": sums[3] / rows}
+            if isnext:
+                aux["isnext_acc"] = sums[4] / rows
+            vals = torch.stack([sums[0], *aux.values()]).tolist()
         self.step_count += 1
         aux = dict(zip(aux, vals[1:]))
         self.history.append({"loss": vals[0], **aux,
@@ -247,10 +292,18 @@ class Pretrainer:
         return {"loss": tot[0], "mlm_acc": tot[1], "act_acc": tot[2]}
 
     def save(self, path: str) -> None:
+        """A ``checkpoint-N`` snapshot; rank 0 writes it
+        (``dasa_tpu/pretrain/trainer.py:213-220``), and under data
+        parallel every rank waits for it."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            self.mesh.barrier()
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         torch.save({"step": self.step_count,
                     "state_dict": {k: v.detach().cpu() for k, v in
                                    self.model.state_dict().items()}}, path)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def load(self, path: str) -> None:
         """Restore a :meth:`save` snapshot, or the JAX Pretrainer's (its
@@ -279,8 +332,11 @@ def run_pretrain(cfg: Config, world=None, device=None) -> Pretrainer:
     """CLI mode ``pretrain``: step records from the train split's teacher
     paths, ``cfg.iters`` steps of the objective, validation every
     ``val_every`` steps on a held-out twentieth (at least a batch),
-    ``checkpoint-N`` every ``save_every`` steps and at the end."""
-    from dasa_tpu_torch.train.trainer import World
+    ``checkpoint-N`` every ``save_every`` steps and at the end.  As the
+    JAX pretrainer always runs on a mesh of all its devices, this runs on
+    the data axis of the job's ranks (one rank without launcher
+    variables)."""
+    from dasa_tpu_torch.train.trainer import World, make_mesh_if_requested
 
     world = world or World(cfg)
     tok = world.tok
@@ -300,7 +356,9 @@ def run_pretrain(cfg: Config, world=None, device=None) -> Pretrainer:
     if len(batcher) == 0:
         raise ValueError(f"{len(records)} training records make no batch of "
                          f"{cfg.batch_size}")
-    pt = Pretrainer(cfg, world.feature_db, len(tok), device=device)
+    pt = Pretrainer(cfg, world.feature_db, len(tok), device=device,
+                    mesh=make_mesh_if_requested(
+                        cfg.replace(data_parallel=True)))
     snap_dir = os.path.join(cfg.snap_dir, cfg.name, "pretrain")
     start = time.time()
     it = 0

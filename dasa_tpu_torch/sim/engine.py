@@ -17,8 +17,9 @@ Two layers:
   (r2r_src/env.py:240-315), candidates are computed vectorized over
   neighbors x views and cached per scan — the hot path is pure numpy.
 
-The JAX package's optional native C++ engine is not carried over: this
-package runs the numpy engine only.
+The native C++ engine (``sim/native/dasasim.cpp`` through
+``sim/csim.py``) computes the same geometry; ``env/r2r_env.py`` runs it
+when it builds, and this numpy engine otherwise or on request.
 """
 
 from __future__ import annotations

@@ -5,8 +5,12 @@
 Counterpart of ``World``, ``make_agent``, ``run_validation``, ``train``,
 ``beam_valid``, ``train_speaker``, ``valid_speaker`` and ``valid`` in
 ``dasa_tpu/train/trainer.py`` (reference r2r_src/train.py:110-517),
-with the NDH worlds (``World(ndh=True)``, reference ndhtrain.py).  The
-data-parallel mesh comes with a later slice (ROADMAP.md).
+with the NDH worlds (``World(ndh=True)``, reference ndhtrain.py).
+``data_parallel`` makes the process one rank of a data-parallel job
+(:func:`make_mesh_if_requested`, ``parallel/``): launch one process a card
+with torchrun or with the JAX package's variables (``COORDINATOR_ADDRESS``,
+``NUM_PROCESSES``, ``PROCESS_ID``); rank 0 writes the checkpoints and the
+metrics, the other ranks their metrics under ``rank{r}/``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from dasa_tpu_torch.data.datasets import expand_instructions, load_datasets
 from dasa_tpu_torch.data.features import load_feature_db
 from dasa_tpu_torch.data.ndh import convert_ndh_items
 from dasa_tpu_torch.env import R2REnv
+from dasa_tpu_torch.parallel import DataMesh, make_mesh
+from dasa_tpu_torch.parallel.distributed import initialize
 from dasa_tpu_torch.train.evaluation import Evaluation
 from dasa_tpu_torch.train.metrics import MetricsWriter
 from dasa_tpu_torch.utils import (
@@ -103,17 +109,45 @@ class World:
                       seed=cfg.seed, name=name,
                       connectivity_dir=cfg.connectivity_dir,
                       max_candidates=cfg.max_candidates,
-                      max_input=cfg.max_input, depth_db=self.depth_db)
+                      max_input=cfg.max_input, depth_db=self.depth_db,
+                      backend=cfg.sim_backend)
+
+
+def make_mesh_if_requested(cfg: Config) -> Optional[DataMesh]:
+    """--data_parallel: join the job's process group (a one-rank job
+    without launcher variables) and make the data axis over its ranks
+    (``dasa_tpu/train/trainer.py:112-139``)."""
+    if not cfg.data_parallel:
+        return None
+    backend = initialize()
+    mesh = make_mesh(n_data=cfg.n_data)
+    n_data = mesh.n_data
+    if cfg.batch_size % n_data != 0:
+        print(f"WARNING: batch_size {cfg.batch_size} not divisible by "
+              f"data axis {n_data}; batch-dim arrays will be replicated "
+              "instead of sharded", flush=True)
+    print(f"data-parallel mesh: {n_data} rank(s) on 'data', this one rank "
+          f"{mesh.rank} (backend {backend or 'none: one process'})",
+          flush=True)
+    return mesh
 
 
 def make_agent(cfg: Config, world: World, env_name: str = "train",
                device=None, rng_seed: int = 0) -> Seq2SeqAgent:
-    if cfg.data_parallel:
-        raise NotImplementedError(
-            "data_parallel comes with the data-parallel slice (ROADMAP.md)")
     return Seq2SeqAgent(cfg, world.envs[env_name], world.feature_db,
                         depth_db=world.depth_db, vocab_size=len(world.tok),
-                        rng_seed=rng_seed, device=device)
+                        rng_seed=rng_seed, device=device,
+                        mesh=make_mesh_if_requested(cfg))
+
+
+def _log_dir(cfg: Config, agent) -> str:
+    """The run's metrics directory; a rank but the first of a
+    data-parallel job writes under ``rank{r}/`` inside it."""
+    path = os.path.join(cfg.log_dir, cfg.name)
+    mesh = getattr(agent, "mesh", None)
+    if mesh is not None and mesh.rank != 0:
+        path = os.path.join(path, f"rank{mesh.rank}")
+    return path
 
 
 def run_validation(agent: Seq2SeqAgent, world: World, writer, it: int,
@@ -180,7 +214,7 @@ def train(cfg: Config, world: Optional[World] = None, device=None,
             speaker.load(cfg.speaker)
     snap_dir = os.path.join(cfg.snap_dir, cfg.name, "state_dict")
     os.makedirs(snap_dir, exist_ok=True)
-    writer = MetricsWriter(os.path.join(cfg.log_dir, cfg.name))
+    writer = MetricsWriter(_log_dir(cfg, agent))
 
     start_iter = 0
     if cfg.load is not None:
@@ -448,7 +482,7 @@ def valid(cfg: Config, world: Optional[World] = None, device=None,
                 "%s: %.4f" % (m, v) for m, v in summary.items())),
                 flush=True)
         out[env_name] = summary
-        if cfg.submit:
+        if cfg.submit and (agent.mesh is None or agent.mesh.rank == 0):
             _write_submit(cfg, env_name, results)
     return out
 

@@ -193,3 +193,48 @@ def _state_dict_from_jax(params: Mapping, renames: Mapping[Path, Path]
         else:
             raise KeyError(f"unmapped JAX param {'/'.join(path)}")
     return {k: np.array(v, np.float32, order="C") for k, v in state.items()}
+
+
+def resnet_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """The port's ``ResNet`` state_dict (numpy f32 arrays) from the JAX
+    ``ResNet``'s variables ``{"params", "batch_stats"}``: a conv's HWIO
+    ``kernel`` becomes the OIHW ``weight``; a BatchNorm's ``scale`` /
+    ``bias`` its ``weight`` / ``bias`` and its ``batch_stats`` ``mean`` /
+    ``var`` its ``running_mean`` / ``running_var``; flax's ``layer{i}_{j}``
+    is ``layer{i}.{j}``, ``downsample_conv`` / ``downsample_bn`` are
+    ``downsample.0`` / ``downsample.1``.  Every leaf must be consumed."""
+    state: Dict[str, np.ndarray] = {}
+    names = {"kernel": "weight", "scale": "weight", "bias": "bias",
+             "mean": "running_mean", "var": "running_var"}
+    for coll in ("params", "batch_stats"):
+        for path, val in flatten_params(variables[coll]).items():
+            *mod, leaf = path
+            parts = []
+            for p in mod:
+                if (m := re.match(r"^layer(\d+)_(\d+)$", p)):
+                    parts += [f"layer{m.group(1)}", m.group(2)]
+                elif p in ("downsample_conv", "downsample_bn"):
+                    parts += ["downsample", "0" if p.endswith("conv")
+                              else "1"]
+                elif re.match(r"^(conv|bn)\d$", p):
+                    parts.append(p)
+                else:
+                    raise KeyError(f"unmapped JAX ResNet leaf "
+                                   f"{coll}/{'/'.join(path)}")
+            is_conv = parts[-1].startswith("conv") or parts[-2:] == [
+                "downsample", "0"]
+            allowed = (("kernel",) if is_conv else
+                       ("scale", "bias") if coll == "params" else
+                       ("mean", "var"))
+            if leaf not in allowed or (is_conv and coll != "params"):
+                raise KeyError(f"unmapped JAX ResNet leaf "
+                               f"{coll}/{'/'.join(path)}")
+            val = _as_f32(val)
+            if leaf == "kernel":
+                val = val.transpose(3, 2, 0, 1)
+            state[".".join(parts + [names[leaf]])] = val
+    for key in [k for k in state if k.endswith(".running_var")]:
+        state[key[:-len("running_var")] + "num_batches_tracked"] = \
+            np.zeros((), np.int64)
+    return {k: np.array(v, v.dtype if v.dtype == np.int64 else np.float32,
+                        order="C") for k, v in state.items()}

@@ -353,3 +353,51 @@ def test_shift_kernel_matches_plain_on_card(cuda):
     torch.testing.assert_close(logit, r_logit, atol=1e-3, rtol=1e-4)
     torch.testing.assert_close(out.float(), r_out.float(), atol=1e-2,
                                rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_resnet_bf16_matches_f32_on_card(cuda):
+    """The featurizer's ResNet-152 in bf16 (cuDNN convolutions,
+    channels-last) against the same weights in f32: each image's 2048
+    pooled features at cosine >= 0.99 (phase 21's limit)."""
+    from dasa_tpu_torch.models.resnet import resnet152
+
+    torch.manual_seed(0)
+    model = resnet152().cuda()
+    x = torch.rand(4, 96, 128, 3, device="cuda")
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=False):
+        want = model(x)
+        got = model.set_dtype(torch.bfloat16)(x)
+    assert got.dtype == torch.float32 and got.shape == (4, 2048)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+    assert bool(got.isfinite().all()) and float(cos.min()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_job_on_card(cuda, monkeypatch):
+    """``initialize`` from the launcher's variables picks NCCL for one
+    rank on one card; the mesh's collectives run on it."""
+    import socket
+
+    from dasa_tpu_torch.parallel import distributed, make_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("COORDINATOR_ADDRESS", f"localhost:{port}")
+    monkeypatch.setenv("NUM_PROCESSES", "1")
+    monkeypatch.setenv("PROCESS_ID", "0")
+    try:
+        assert distributed.initialize() == "nccl"
+        mesh = make_mesh()
+        x = torch.arange(6.0, device="cuda")
+        assert torch.equal(mesh.allsum(x), x)
+        assert torch.equal(mesh.all_gather(x[None]), x[None])
+        p = torch.nn.Parameter(torch.ones(3, device="cuda"))
+        p.grad = torch.full_like(p, 2.0)
+        mesh.all_reduce_grads([p])
+        assert torch.equal(p.grad, torch.full_like(p, 2.0))
+        mesh.barrier()
+    finally:
+        distributed.shutdown()

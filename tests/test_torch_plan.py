@@ -74,7 +74,8 @@ def test_adain_headline_plans_fit(n, bn, grid):
     assert plan.smem <= _build.MAX_SMEM
 
 
-@pytest.mark.parametrize("b,stages", [(20, 7), (32, 4)])
+# 10: a rank's rows of the headline batch under data parallel at D = 2
+@pytest.mark.parametrize("b,stages", [(10, 8), (20, 7), (32, 4)])
 def test_lstm_bwd_headline_plans_fit(b, stages):
     plan = bwd_plan(80, b, 1024, H100_SMS)
     assert plan.ctas == 128 and plan.kc == 512 and plan.nchunks == 8
@@ -154,7 +155,7 @@ def test_lstm_bwd_plan_keeps_the_deepest_ring_that_fits(t, b):
         t, b, 1024, plan.kc, plan.stages + 1) > _build.MAX_SMEM)
 
 
-@pytest.mark.parametrize("b", [20, 32])
+@pytest.mark.parametrize("b", [10, 20, 32])
 @pytest.mark.parametrize("dirs,units,ctas", [(1, 8, 128), (2, 16, 128)])
 def test_lstm_fwd_headline_plans_fit(b, dirs, units, ctas):
     """One direction takes 8 units a CTA (128 CTAs); both directions in

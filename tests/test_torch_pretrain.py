@@ -93,8 +93,9 @@ def world(tmp_path_factory):
     jenv = JaxEnv(jfeat, items, batch_size=B, connectivity_dir=conn,
                   max_input=L, backend="python")
     feat = FeatureDB.synthetic(SCANS, conn, dim=DIM)
+    # the python engine on both sides: the records hold its float geometry
     env = R2REnv(feat, items, batch_size=B, connectivity_dir=conn,
-                 max_input=L)
+                 max_input=L, backend="python")
     records = generate_pretrain_records(env, max_steps=8)
     return dict(conn=conn, data=data, tok=tok, jenv=jenv, env=env,
                 jfeat=jfeat, feat=feat, records=records)

@@ -106,7 +106,8 @@ def port_pair(world, **kw):
     feat = FeatureDB.synthetic(SCANS, conn, dim=DIM)
     depth = FeatureDB.synthetic(SCANS, conn, dim=DIM, salt=7)
     env = R2REnv(feat, items, batch_size=B, connectivity_dir=conn,
-                 max_candidates=16, max_input=L, depth_db=depth)
+                 max_candidates=16, max_input=L, depth_db=depth,
+                 backend="python")
     agent = Seq2SeqAgent(cfg, env, feat, depth_db=depth, device="cpu")
     speaker = SpeakerAgent(cfg, env, feat, vocab_size=len(tok), tok=tok,
                            device="cpu")

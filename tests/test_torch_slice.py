@@ -187,6 +187,10 @@ def test_import_does_not_load_jax_or_the_jax_package():
         "import dasa_tpu_torch.utils.torch_import\n"
         "import dasa_tpu_torch.data.ndh, dasa_tpu_torch.data.semantic\n"
         "from dasa_tpu_torch.data.btokenizer import BTokenizer\n"
+        "import dasa_tpu_torch.parallel, dasa_tpu_torch.parallel.distributed\n"
+        "import dasa_tpu_torch.models.resnet, dasa_tpu_torch.pipelines\n"
+        "import dasa_tpu_torch.pipelines.enable_depth\n"
+        "import dasa_tpu_torch.sim.render, dasa_tpu_torch.sim.csim\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'dasa_tpu')]\n"
         "assert not bad, bad\n")

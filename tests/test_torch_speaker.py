@@ -75,7 +75,7 @@ def make_pair(world, use_pallas="never", **kw):
     feat = FeatureDB.synthetic(SCANS, conn, dim=DIM)
     env = R2REnv(feat, expand_instructions(raw, tok, max_input=L),
                  batch_size=B, connectivity_dir=conn, max_candidates=16,
-                 max_input=L)
+                 max_input=L, backend="python")
     sp = SpeakerAgent(Config(**kw, connectivity_dir=conn, data_dir=data),
                       env, feat, vocab_size=len(tok), tok=tok,
                       device="cpu")

@@ -184,10 +184,11 @@ def test_stream_windows_match_jax(world, use_pallas):
             np.testing.assert_array_equal(
                 rec[key], jrec[key], err_msg=f"window {window} {key}")
         sent, flow = st.inflight[-1][0], st.inflight[-1][1].read()
-        clamped += sum(len(sent[h]) - int(flow["admitted"][h])
+        # the ledger is (D, 2) and the chunks sent[h][d], as in JAX
+        clamped += sum(len(sent[h][0]) - int(flow["admitted"][0, h])
                        for h in (0, 1))
         for key, val in jst.inflight[-1][1].items():
-            np.testing.assert_array_equal(flow[key], np.asarray(val)[0],
+            np.testing.assert_array_equal(flow[key], np.asarray(val),
                                           err_msg=f"window {window} {key}")
         np.testing.assert_allclose(float(agent.losses[-1]),
                                    float(jagent.losses[-1]), rtol=LOSS_RTOL)

@@ -259,7 +259,8 @@ def port_agent(world, **kw):
     feat = FeatureDB.synthetic(SCANS, conn, dim=DIM)
     depth = FeatureDB.synthetic(SCANS, conn, dim=DIM, salt=7)
     env = R2REnv(feat, items_of(world), batch_size=2, connectivity_dir=conn,
-                 max_candidates=16, max_input=L, depth_db=depth)
+                 max_candidates=16, max_input=L, depth_db=depth,
+                 backend="python")
     return Seq2SeqAgent(Config(**{**AGENT_CFG, **kw}, connectivity_dir=conn,
                                data_dir=data), env, feat, depth_db=depth,
                         device="cpu")

@@ -13,6 +13,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --phases build,kernels,encoders
     python3 chip_smoke.py --phases build,kernels,ndh,knobs
     python3 chip_smoke.py --phases build,main,dp,offline,native
+    python3 chip_smoke.py --phases build,scripts
 
 Phases:
   1. build — print the card's name and power limit, build the CUDA
@@ -252,6 +253,30 @@ Phases:
      the scan, the observations of a teacher walk and the host-rollout
      evaluation of val_unseen (trajectories, SR, SPL) equal to the
      python engine's, with the host seconds of each evaluation.
+  23. scripts — the repo's operational scripts on the port
+     (``dasa_tpu_torch/scripts``), through their ``main`` on a synthetic
+     world with a ``scans.txt``: (a) ``make_task``; a speaker at its
+     Config widths trained 2 iterations at batch 64 and saved;
+     ``make_aug_paths --load`` of it (up to 64 new 4-6 hop paths of the
+     train scan, greedy decode at batch 64); one headline ``auglistener``
+     iteration with ``--aug`` on the written file.  Fails unless every
+     sampled path is written and captioned once, every written item loads,
+     K1 launched during the decode and K1-K4 in the iteration; prints the
+     decode s a batch of 64.  (b) ``check_real_data`` on TSV image
+     features, an explicit vocab and that listener's weights in the
+     reference's per-component layout (``adaIn``): fails unless it prints
+     ``READY:``, each split's SR and SPL equal a ``valid()`` by the saving
+     listener, every instr_id is scored once, K1, K3 and K4 launched, and
+     a copy without ``R2R_val_unseen.json`` exits 1 with ``FAILED:``;
+     prints s a split.  (c) ``stream_quality_ab`` at headline width
+     (``--regimes episodic,stream --total_steps 4000 --n_milestones 2
+     --use_pallas always --save_dir``): fails unless both regimes reach
+     both milestones, every row holds both val splits, the JSON, the table
+     and each regime's listener are written and K1-K4 launched; prints SR
+     / SPL a milestone and s a regime (SR is reported, not gated; the
+     agent-step counter counts the validations' steps too, as the JAX
+     script's does).  The counters are set to 0 before each script and
+     summed.
   profile (only when named in --phases) — one eval batch, one training
      iteration, one stream window, one selfTrain iteration, one search
      batch, one host-rollout iteration and one pretraining step at
@@ -269,6 +294,7 @@ during phase 16's runs; ``launches_encoders``: during phase 17's runs;
 ``launches_ndh``: during phase 18's runs; ``launches_knobs``: during
 phase 19's runs; ``launches_dp``: during phase 20 (a)'s ``train()``;
 ``launches_dp_ranks``: each rank's during phase 20 (b);
+``launches_scripts``: during phase 23's scripts;
 ``ratio``: ``ms`` /
 ``library_ms``; ``device_ms`` / ``library_device_ms``: the back-to-back
 device times), and as the last line
@@ -279,7 +305,9 @@ no phase is caught and ignored.  Imports nothing of JAX or dasa_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -486,6 +514,15 @@ DP_UPDATE_COS = 0.995
 OFFLINE_RENDERED = 2
 OFFLINE_FACE = 256
 OFFLINE_COS = 0.99
+# phase 23: the operational scripts; make_task's split sizes (the train
+# split's 3 instructions an item exceed the speaker's batch of 64), the
+# speaker's training iterations before make_aug_paths, the paths it
+# samples a train scan, and stream_quality_ab's agent-steps (2 milestones)
+SCRIPT_N_TRAIN = 30
+SCRIPT_N_VAL = 10
+SCRIPT_SPK_ITERS = 2
+SCRIPT_AUG_PATHS = 64
+SCRIPT_AB_STEPS = 4000
 KERNEL_INFO = {
     "bilstm_scan": ("dasa_tpu_torch/csrc/lstm_fwd.cu",
                     "dasa_tpu/ops/lstm.py:38 (_fwd_kernel)"),
@@ -3390,6 +3427,271 @@ def phase_native(world, agent):
             fail(f"native: {key} {s_nat[key]} vs {s_py[key]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the operational scripts (dasa_tpu_torch/scripts)
+# ---------------------------------------------------------------------------
+def cfg_flags(kw) -> list:
+    return [x for key, val in kw.items() for x in (f"--{key}", str(val))]
+
+
+def counted(fn, *args):
+    """(fn's result, the kernels' launches during it, its seconds)."""
+    import torch
+
+    from dasa_tpu_torch import ops
+
+    gc.collect()
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    start = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, ops.kernel_launches(), time.perf_counter() - start
+
+
+def check_launched(label, launches, names):
+    print(f"  launches during {label}: {launches}", flush=True)
+    for name in names:
+        if launches[name] <= 0:
+            fail(f"kernel {name} never launched during {label}")
+
+
+def phase_scripts(seed: int, root: str):
+    """The repo's operational scripts on the port, through their ``main``,
+    on a synthetic world whose ``scans.txt`` the phase writes: (a)
+    ``make_task``; a speaker at its Config widths trained SCRIPT_SPK_ITERS
+    iterations at batch 64 and saved; ``make_aug_paths --load`` of it
+    (up to SCRIPT_AUG_PATHS 4-6 hop paths a train scan, greedy, batch 64);
+    one headline ``auglistener`` iteration on the written file.  (b)
+    ``check_real_data`` on TSV image features, an explicit vocab and the
+    (a) listener's weights in the reference's per-component layout
+    (``adaIn``), against a ``valid()`` by that listener; a copy with a
+    split file removed.  (c) ``stream_quality_ab`` at headline width,
+    both regimes, SCRIPT_AB_STEPS agent-steps in 2 milestones.  The
+    launch counters are set to 0 before each script and read after."""
+    import torch
+
+    from dasa_tpu_torch.config import Config
+    from dasa_tpu_torch.data.datasets import load_datasets
+    from dasa_tpu_torch.data.features import FeatureDB
+    from dasa_tpu_torch.scripts import (
+        check_real_data,
+        make_aug_paths,
+        make_task,
+        stream_quality_ab,
+    )
+    from dasa_tpu_torch.testing import (
+        write_feature_tsv,
+        write_synthetic_connectivity,
+    )
+    from dasa_tpu_torch.train.trainer import World, make_speaker, train
+
+    base = os.path.join(root, "scripts")
+    conn, data = os.path.join(base, "connectivity"), os.path.join(base, "task")
+    scans = ["synthA", "synthB"]
+    write_synthetic_connectivity(conn, scans, n_nodes=40, seed=seed)
+    with open(os.path.join(conn, "scans.txt"), "w") as f:
+        f.write("\n".join(scans) + "\n")
+    total = {}
+
+    # ---- (a) make_task, a speaker, make_aug_paths, auglistener ---------
+    make_task.main(["--out", data, "--connectivity", conn, "--train_scans",
+                    "1", "--unseen_scans", "1", "--n_train",
+                    str(SCRIPT_N_TRAIN), "--n_val", str(SCRIPT_N_VAL),
+                    "--seed", str(seed)])
+    spk_kw = dict(HEADLINE, **SPEAKER, batch_size=SPK_B, use_pallas="always",
+                  data_dir=data, connectivity_dir=conn, seed=seed)
+    spk_cfg = Config(**spk_kw)
+    speaker = make_speaker(spk_cfg, World(spk_cfg))
+    losses = speaker.train(SCRIPT_SPK_ITERS)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"scripts (a): speaker losses {losses}")
+    spk_path = os.path.join(base, "speaker")
+    speaker.save(SCRIPT_SPK_ITERS, spk_path)
+    del speaker
+    aug_path = os.path.join(data, "R2R_aug_gen.json")
+    captions = []
+    caption_paths = make_aug_paths.caption_paths
+
+    def recorded(*args, **kwargs):
+        captions.append(caption_paths(*args, **kwargs))
+        return captions[-1]
+
+    make_aug_paths.caption_paths = recorded
+    try:
+        raw, launches, seconds = counted(make_aug_paths.main, [
+            "--out", aug_path, "--n_per_scan", str(SCRIPT_AUG_PATHS),
+            "--min_hops", "4", "--max_hops", "6", "--load", spk_path,
+            *cfg_flags(spk_kw)])
+    finally:
+        make_aug_paths.caption_paths = caption_paths
+    check_launched("make_aug_paths", launches, ("bilstm_scan",))
+    add_launches(total, launches)
+    with open(aug_path) as f:
+        written = json.load(f)
+    (path2inst, decode_s), = captions
+    ids = [it["path_id"] for it in written]
+    if not 0 < len(written) == len(raw) <= SCRIPT_AUG_PATHS:
+        fail(f"scripts (a): {len(written)} items written, {len(raw)} "
+             f"sampled (at most {SCRIPT_AUG_PATHS})")
+    if len(set(ids)) != len(ids) or set(path2inst) != set(ids):
+        fail(f"scripts (a): {len(set(ids))} path ids over {len(ids)} items, "
+             f"{len(path2inst)} captioned")
+    placeholders = sum(it["instructions"] == ["placeholder"]
+                       for it in written)
+    print(f"  make_aug_paths: {len(written)} paths sampled and captioned "
+          f"once each ({placeholders} placeholders for an empty caption, "
+          f"the speaker trained {SCRIPT_SPK_ITERS} iterations); "
+          f"decode (up to {spk_cfg.max_decode} words, teacher path "
+          f"included) s a batch of {SPK_B} "
+          f"{[round(x, 4) for x in decode_s]}; the script {seconds:.2f} s; "
+          f"card {card_name()}", flush=True)
+
+    cfg_aug = Config(**{**HEADLINE, **TRAIN}, use_pallas="always",
+                     data_dir=data, connectivity_dir=conn, seed=seed,
+                     train="auglistener", aug=aug_path, iters=2, log_every=2,
+                     val_every=10 ** 9, save_every=10 ** 9,
+                     snap_dir=os.path.join(base, "snap"),
+                     log_dir=os.path.join(base, "log"), name="scripts_aug")
+    world = World(cfg_aug)
+    if len(world.envs["aug"].data) != len(written):
+        fail(f"scripts (a): --aug loaded {len(world.envs['aug'].data)} of "
+             f"{len(written)} items")
+    agent, launches, seconds = counted(train, cfg_aug, world)
+    check_launched("the auglistener iteration", launches, PATH_KERNELS)
+    add_launches(total, launches)
+    losses = [float(x) for x in agent.logs["loss"]]
+    if agent.iter_count != 1 or not losses or not all(
+            math.isfinite(x) for x in losses):
+        fail(f"scripts (a): auglistener {agent.iter_count} steps, losses "
+             f"{losses}")
+    print(f"  auglistener --aug: one iteration (an org and an aug pass "
+          f"pair) in {seconds:.2f} s, all {len(written)} items loaded, "
+          f"losses {[round(x, 4) for x in losses]}", flush=True)
+
+    # ---- (b) check_real_data on its checkpoint -------------------------
+    tsv = os.path.join(base, "img.tsv")
+    write_feature_tsv(FeatureDB.synthetic(scans, conn, dim=HEADLINE[
+        "feature_size"]), tsv)
+    vocab = os.path.join(base, "vocab.txt")
+    with open(os.path.join(data, "train_vocab.txt")) as f, open(vocab,
+                                                                "w") as g:
+        g.write(f.read())
+    agent.save(agent.iter_count, os.path.join(base, "listener"))
+    blob = torch.load(os.path.join(base, "listener"), map_location="cpu")
+    ckpt = os.path.join(base, "reference_listener")
+    torch.save({("adaIn" if name == "adain" else name):
+                {k: v for k, v in entry.items() if k != "iteration"}
+                for name, entry in blob.items()}, ckpt)
+    del blob
+    want = {}
+    for split in ("val_seen", "val_unseen"):
+        agent.env = world.envs[split]
+        want[split], _ = world.evaluators[split].score(
+            agent.test(feedback="argmax"))
+    del agent, world
+    listener = dict(HEADLINE, **TRAIN, use_pallas="always",
+                    connectivity_dir=conn, seed=seed)
+    argv = ["--img_features", tsv, "--vocab", vocab, "--checkpoint", ckpt,
+            "--flags", " ".join(cfg_flags(listener))]
+    report, launches, seconds = counted(check_real_data.main,
+                                        ["--data_dir", data, *argv])
+    check_launched("check_real_data", launches, EVAL_KERNELS)
+    add_launches(total, launches)
+    for split, entry in report.items():
+        got = entry["summary"]
+        ids = [r["instr_id"] for r in entry["results"]]
+        expected = {f"{it['path_id']}_{j}" for it in load_datasets(
+            [split], data) for j in range(len(it["instructions"]))}
+        if len(ids) != len(set(ids)) or set(ids) != expected:
+            fail(f"check_real_data {split}: {len(set(ids))} instr_ids of "
+                 f"{len(ids)} results, {len(expected)} expected")
+        for key in ("success_rate", "spl"):
+            if got[key] != want[split][key]:
+                fail(f"check_real_data {split}: {key} {got[key]} against "
+                     f"{want[split][key]} by the saving listener")
+        print(f"  check_real_data {split}: SR {got['success_rate']:.4f} SPL "
+              f"{got['spl']:.4f} NE {got['nav_error']:.4f}, equal to the "
+              f"saving listener's valid(); {len(ids)} instr_ids once each; "
+              f"{entry['seconds']:.3f} s", flush=True)
+    if set(report) != {"val_seen", "val_unseen"}:
+        fail(f"check_real_data: splits {sorted(report)}")
+    missing = os.path.join(base, "task_missing")
+    os.makedirs(missing)
+    for split in ("train", "val_seen"):
+        with open(os.path.join(data, f"R2R_{split}.json")) as f, open(
+                os.path.join(missing, f"R2R_{split}.json"), "w") as g:
+            g.write(f.read())
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            check_real_data.main(["--data_dir", missing, *argv])
+        fail("check_real_data without R2R_val_unseen.json did not exit")
+    except SystemExit as e:
+        if e.code != 1 or not out.getvalue().startswith("FAILED: "):
+            fail(f"check_real_data without a split file: exit {e.code}, "
+                 f"{out.getvalue()!r}")
+    print(f"  check_real_data: {seconds:.2f} s, READY; without "
+          f"R2R_val_unseen.json exit 1, {out.getvalue().strip()!r}",
+          flush=True)
+
+    # ---- (c) stream_quality_ab at headline width ------------------------
+    ab_path = os.path.join(base, "stream_ab.json")
+    log = io.StringIO()
+    before = os.environ.get("DASA_CONNECTIVITY_DIR")
+    os.environ["DASA_CONNECTIVITY_DIR"] = conn
+    try:
+        with contextlib.redirect_stdout(log):
+            ab, launches, seconds = counted(stream_quality_ab.main, [
+                "--data_dir", data, "--regimes", "episodic,stream",
+                "--total_steps", str(SCRIPT_AB_STEPS), "--n_milestones", "2",
+                "--use_pallas", "always", "--out", ab_path, "--save_dir",
+                os.path.join(base, "ab_snap")])
+    finally:
+        if before is None:
+            del os.environ["DASA_CONNECTIVITY_DIR"]
+        else:
+            os.environ["DASA_CONNECTIVITY_DIR"] = before
+        print(log.getvalue(), end="", flush=True)
+    check_launched("stream_quality_ab", launches, PATH_KERNELS)
+    add_launches(total, launches)
+    with open(ab_path) as f:
+        if json.load(f) != json.loads(json.dumps(ab)):
+            fail("stream_quality_ab: the JSON differs from the run")
+    table = [x for x in log.getvalue().splitlines()
+             if x.startswith("| episodic |") or x.startswith("| stream |")]
+    if len(table) != 2:
+        fail(f"stream_quality_ab: table rows {table}")
+    if [r["regime"] for r in ab["runs"]] != ["episodic", "stream"]:
+        fail(f"stream_quality_ab: runs {[r['regime'] for r in ab['runs']]}")
+    for run in ab["runs"]:
+        if not os.path.exists(os.path.join(base, "ab_snap",
+                                           f"{run['regime']}_seed1")):
+            fail(f"stream_quality_ab {run['regime']}: no checkpoint")
+        rows = run["rows"]
+        steps = [row["agent_steps"] for row in rows]
+        if len(rows) != 3 or steps[0] != 0 or not all(
+                s >= m for s, m in zip(steps[1:], ab["milestones"])):
+            fail(f"stream_quality_ab {run['regime']}: agent-steps {steps}, "
+                 f"milestones {ab['milestones']}")
+        for row in rows:
+            for split in ("val_seen", "val_unseen"):
+                if split not in row or not all(
+                        math.isfinite(v) for v in row[split].values()):
+                    fail(f"stream_quality_ab {run['regime']}: row {row}")
+        print(f"  stream_quality_ab {run['regime']}: "
+              f"{run['train_seconds']:.2f} s training with its validations, "
+              + "; ".join(
+                  f"{row['agent_steps']} agent-steps ({row['iters']} "
+                  f"iterations): val_seen SR {row['val_seen']['success_rate']}"
+                  f" SPL {row['val_seen']['spl']}, val_unseen SR "
+                  f"{row['val_unseen']['success_rate']} SPL "
+                  f"{row['val_unseen']['spl']}" for row in rows),
+              flush=True)
+    print(f"  stream_quality_ab: {seconds:.2f} s in all; launches in phase "
+          f"23: {total}; card {card_name()}", flush=True)
+    return total
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3539,7 +3841,8 @@ def main() -> None:
                     default="build,kernels,main,compare,train,train-compare,"
                             "stream,stream-eval,speaker,speaker-compare,"
                             "selftrain,host,search,pretrain,pretrain-chain,"
-                            "variants,encoders,ndh,knobs,dp,offline,native")
+                            "variants,encoders,ndh,knobs,dp,offline,native,"
+                            "scripts")
     ap.add_argument("--seed", type=int, default=0)
     # phase 20 (b)'s rank processes
     ap.add_argument("--dp-worker", type=int, default=None,
@@ -3591,11 +3894,12 @@ def main() -> None:
     launches_variants, launches_encoders = {}, {}
     launches_ndh, launches_knobs = {}, {}
     launches_dp, launches_dp_ranks = {}, [{}, {}]
+    launches_scripts = {}
     if phases & {"main", "compare", "train", "train-compare", "stream",
                  "stream-eval", "profile", "speaker", "speaker-compare",
                  "selftrain", "host", "search", "pretrain",
                  "pretrain-chain", "variants", "encoders", "ndh", "knobs",
-                 "dp", "offline", "native"}:
+                 "dp", "offline", "native", "scripts"}:
         with tempfile.TemporaryDirectory() as root:
             cfg, world = headline_world(root, args.seed, use_pallas="always")
             cfg_train = cfg.replace(**TRAIN)
@@ -3694,6 +3998,10 @@ def main() -> None:
                        "the python one")
                 phase_native(off_world, off_agent)
                 del off_agent
+            if "scripts" in phases:
+                header("== phase 23 (scripts): make_task, make_aug_paths, "
+                       "check_real_data and stream_quality_ab on the port")
+                launches_scripts = phase_scripts(args.seed, root)
             if "profile" in phases:
                 header("== profile: one eval batch, one training iteration, "
                        "one stream window, one selfTrain iteration, one "
@@ -3703,7 +4011,7 @@ def main() -> None:
     print(f"wall time: {time.perf_counter() - wall_start:.2f} s", flush=True)
     if rows:
         print("== phase 2 rows with the launches of phases 3, 5, 7, 9, 11, "
-              "12, 13, 15, 16, 17, 18, 19 and 20", flush=True)
+              "12, 13, 15, 16, 17, 18, 19, 20 and 23", flush=True)
     for r in rows:
         base = r["name"].split("[")[0]
         per_token = ("" if "us_per_token" not in r
@@ -3722,9 +4030,10 @@ def main() -> None:
               f"{launches_encoders.get(base, 0)} in the encoders, "
               f"{launches_ndh.get(base, 0)} in NDH, "
               f"{launches_knobs.get(base, 0)} in the knobs, "
-              f"{launches_dp.get(base, 0)} in the one-rank NCCL job and "
+              f"{launches_dp.get(base, 0)} in the one-rank NCCL job, "
               f"{[r.get(base, 0) for r in launches_dp_ranks]} on the two "
-              f"gloo ranks{per_token}",
+              f"gloo ranks and {launches_scripts.get(base, 0)} in the "
+              f"scripts{per_token}",
               flush=True)
     out = []
     for r in rows:
@@ -3749,6 +4058,7 @@ def main() -> None:
                     "launches_dp": launches_dp.get(base, 0),
                     "launches_dp_ranks": [r.get(base, 0)
                                           for r in launches_dp_ranks],
+                    "launches_scripts": launches_scripts.get(base, 0),
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

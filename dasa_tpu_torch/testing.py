@@ -7,7 +7,8 @@ so tests and ``chip_smoke.py`` write small worlds of their own in the same
 reads: one entry per viewpoint with ``image_id``, a flat row-major 4x4
 ``pose`` whose translation sits at indices 3, 7 and 11, ``included``,
 ``unobstructed`` (the adjacency row) and ``height``.
-:func:`write_ndh_task` writes CVDN-format NDH dialogs over such a world.
+:func:`write_ndh_task` writes CVDN-format NDH dialogs over such a world,
+:func:`write_feature_tsv` a feature store in the reference's TSV layout.
 """
 
 from __future__ import annotations
@@ -110,6 +111,21 @@ def write_ndh_task(data_dir: str, train_scans: Sequence[str],
                 "player_path": player, "nav_steps": list(player)})
         with open(os.path.join(data_dir, f"NDH_{split}.json"), "w") as f:
             json.dump(out, f)
+
+
+def write_feature_tsv(db, path: str) -> None:
+    """Write a ``data/features.py:FeatureDB`` in the reference's TSV layout
+    (ResNet-152-imagenet.tsv, which ``FeatureDB.from_tsv`` reads): scan,
+    viewpoint, image_w, image_h, vfov and the base64 of the (views, dim)
+    float32 features, a viewpoint a line."""
+    import base64
+
+    with open(path, "w") as f:
+        for long_id, values in zip(db.ids, db.values):
+            scan, vp = long_id.split("_", 1)
+            blob = base64.b64encode(np.ascontiguousarray(
+                values, np.float32).tobytes()).decode("ascii")
+            f.write(f"{scan}\t{vp}\t640\t480\t60\t{blob}\n")
 
 
 @contextlib.contextmanager

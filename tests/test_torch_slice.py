@@ -191,6 +191,14 @@ def test_import_does_not_load_jax_or_the_jax_package():
         "import dasa_tpu_torch.models.resnet, dasa_tpu_torch.pipelines\n"
         "import dasa_tpu_torch.pipelines.enable_depth\n"
         "import dasa_tpu_torch.sim.render, dasa_tpu_torch.sim.csim\n"
+        "import dasa_tpu_torch.scripts.make_task\n"
+        "import dasa_tpu_torch.scripts.make_mini_dataset\n"
+        "import dasa_tpu_torch.scripts.random_agent\n"
+        "import dasa_tpu_torch.scripts.interactive_agent\n"
+        "import dasa_tpu_torch.scripts.plot_curves\n"
+        "import dasa_tpu_torch.scripts.make_aug_paths\n"
+        "import dasa_tpu_torch.scripts.check_real_data\n"
+        "import dasa_tpu_torch.scripts.stream_quality_ab\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'dasa_tpu')]\n"
         "assert not bad, bad\n")
